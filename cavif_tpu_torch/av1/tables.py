@@ -22,7 +22,12 @@ _DATA = Path(__file__).resolve().parent / "data" / "tables.npz"
 
 @lru_cache(maxsize=1)
 def _npz():
-    return np.load(_DATA)
+    # every member read once, up front: an NpzFile reads its zip archive
+    # on each access, which is not safe from several threads at once (the
+    # colour/alpha stream threads and the batch workers build FrameEncoders
+    # concurrently)
+    with np.load(_DATA) as f:
+        return {k: f[k] for k in f.files}
 
 
 @lru_cache(maxsize=None)

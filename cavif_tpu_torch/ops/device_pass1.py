@@ -1,5 +1,6 @@
 """Whole-frame device pass 1 in PyTorch: the encoder's partition + intra-mode
-search over one frame, run on the card (or, for tests, on the CPU).
+search over one frame (run_pass1) or a batch of same-shaped frames
+(run_pass1_batch), run on the card (or, for tests, on the CPU).
 
 The frame goes up once as uint8 (color conversion runs on the device);
 every search the host cascade performs (square tiers 4..32 px, plus 64 at
@@ -14,12 +15,12 @@ ops/pass1_kernels.py (nondirectional and directional families, both fused
 through quantization and the per-candidate sum); the TX_64 family keeps
 the materialized residual path in plain torch, as the reference did.
 
-Reference: cavif_tpu/ops/device_pass1.py (`_program`, `_cost_body`,
-`_nbrs`, `_convert`): same candidate order, cost model, partition DP and
-packed layout, so the encoder's unpacking (`_DevModes`, `_dev_part_dict`)
-reads this output unchanged. Search policy: rav1e's intra partition/mode
-RDO as configured by cavif (ravif src/av1encoder.rs:
-649-708).
+Reference: cavif_tpu/ops/device_pass1.py (`_program`, `_program_batch`,
+`_cost_body`, `_nbrs`, `_convert`, `run_pass1_batch`, `PASS1_HOOKS`):
+same candidate order, cost model, partition DP and packed layout, so the
+encoder's unpacking (`_DevModes`, `_dev_part_dict`) reads this output
+unchanged. Search policy: rav1e's intra partition/mode RDO as configured
+by cavif (ravif src/av1encoder.rs:649-708).
 
 Numerics. `matmul="bf16"` rounds both inputs of every default-precision
 product to bfloat16 (round to nearest even) and accumulates in f32, as the
@@ -29,6 +30,8 @@ CPU. The card runs bf16; the CPU tests compare f32 with the reference.
 
 from __future__ import annotations
 
+import contextvars
+import os
 import threading
 from functools import lru_cache
 
@@ -452,23 +455,29 @@ class ShapeCost(torch.nn.Module):
         return costs
 
 
-def _convert(src, model: str, depth: int):
-    """On-device plane derivation from the compact upload (uint8 image or
-    int16 planes) — exactly the host conversion formulas
-    (ops/colorspace.py; reference av1encoder.rs:483-524). Returns (P, H, W)
-    int32."""
+def _convert_batch(src, model: str, depth: int):
+    """On-device plane derivation from a batch of compact uploads (B uint8
+    images or B int16 plane stacks) — exactly the host conversion formulas
+    (ops/colorspace.py; reference av1encoder.rs:483-524). src is
+    (B, H, W, 3) for ycbcr/gbr, (B, H, W) for mono, (B, P, H, W) for
+    planes. Returns (B * P, H, W) int32, image-major."""
     if model == "ycbcr":
-        return colorspace.rgb_to_ycbcr(src, depth=depth).permute(
-            2, 0, 1).contiguous()
-    if model == "gbr":
-        return colorspace.rgb_to_gbr(src, depth=depth).permute(
-            2, 0, 1).contiguous()
-    if model == "mono":
+        x = colorspace.rgb_to_ycbcr(src, depth=depth).permute(0, 3, 1, 2)
+    elif model == "gbr":
+        x = colorspace.rgb_to_gbr(src, depth=depth).permute(0, 3, 1, 2)
+    elif model == "mono":
         x = src.to(torch.int32)
         if depth == 10:
             x = (x << 2) | (x >> 6)
-        return x[None]
-    return src.to(torch.int32)  # "planes"
+    else:  # "planes"
+        x = src.to(torch.int32)
+    H, W = x.shape[-2:]
+    return x.reshape(-1, H, W).contiguous()
+
+
+def _convert(src, model: str, depth: int):
+    """_convert_batch of one upload: (P, H, W) int32."""
+    return _convert_batch(src[None], model, depth)
 
 
 def _f32(v) -> float:
@@ -482,13 +491,15 @@ def _shape_cost(bw, bh, depth, use_deltas, matmul, device) -> ShapeCost:
 
 
 class Pass1Program(torch.nn.Module):
-    """The whole-frame pass-1 for one static config (port of the
-    reference's `_program`).
+    """The whole-frame pass-1 for one static config, over a batch of B
+    same-shaped frames (port of the reference's `_program` and
+    `_program_batch`: K1 and K2 see all B * P planes' rows at once).
 
     key = (H, W, depth, model, P, min_px, max_px, use_deltas,
            ovh_block, ovh_split, rect_ovh)
-    forward(src, dc_q, ac_q, lam, th, tw) -> packed int8 tensor laid out by
-    `self.spec` = [((bw, bh), name, (nby, nbx)), ...]."""
+    forward(src, dc_q, ac_q, lam, th, tw) with src a batch of B uploads
+    (see _convert_batch) -> packed (B, total) int8 tensor, each row laid
+    out by `self.spec` = [((bw, bh), name, (nby, nbx)), ...]."""
 
     def __init__(self, key, matmul: str, device):
         super().__init__()
@@ -530,7 +541,8 @@ class Pass1Program(torch.nn.Module):
         self.spec = spec
 
     def forward(self, src, dc_q, ac_q, lam: float, th: int, tw: int):
-        planes = _convert(src, self.model, self.depth)
+        B = src.shape[0]
+        planes = _convert_batch(src, self.model, self.depth)
         P = self.P
         out8 = []
         totals = {}  # (bw, bh) -> (y_min [+ uv_min] cost grid, has_uv)
@@ -541,12 +553,13 @@ class Pass1Program(torch.nn.Module):
             emit = (bw, bh) != (4, 4)
             costs = self.costs[f"{bw}x{bh}"](planes, dc_q, ac_q, lam,
                                              (th, tw))
-            y = costs[0]
+            costs = costs.view(B, P, *costs.shape[1:])
+            y = costs[:, 0]
             if emit:
                 out8.append(md[torch.argmin(y, -1)])
             tot = torch.amin(y, -1)
             if uv:
-                uvc = costs[1] + costs[2]  # joint U+V (shared uv mode)
+                uvc = costs[:, 1] + costs[:, 2]  # joint U+V (shared uv mode)
                 if emit:
                     out8.append(md[torch.argmin(uvc, -1)])
                 uvm = torch.amin(uvc, -1)
@@ -569,8 +582,8 @@ class Pass1Program(torch.nn.Module):
         bc = totals[(d0, d0)][0] + ovb
         codes = []
         for s in self.dp_tiers[1:]:
-            q = bc[0::2, 0::2] + bc[0::2, 1::2] + bc[1::2, 0::2] \
-                + bc[1::2, 1::2]
+            q = bc[:, 0::2, 0::2] + bc[:, 0::2, 1::2] + bc[:, 1::2, 0::2] \
+                + bc[:, 1::2, 1::2]
             none_c = totals[(s, s)][0] + ovb
             split_c = ovs + q
             if s >= 64:
@@ -581,8 +594,8 @@ class Pass1Program(torch.nn.Module):
                 h2 = s // 2
                 htot = totals[(s, h2)][0]
                 vtot = totals[(h2, s)][0]
-                horz_c = rovh + htot[0::2] + htot[1::2]
-                vert_c = rovh + vtot[:, 0::2] + vtot[:, 1::2]
+                horz_c = rovh + htot[:, 0::2] + htot[:, 1::2]
+                vert_c = rovh + vtot[:, :, 0::2] + vtot[:, :, 1::2]
                 if P > 1 and not totals[(h2, h2)][1]:
                     split_c = split_c + uv_min8
                     horz_c = horz_c + uv_min8
@@ -591,7 +604,7 @@ class Pass1Program(torch.nn.Module):
             codes.append(torch.argmin(cand, 0))
             bc = torch.amin(cand, 0)
         out8.extend(codes)
-        return torch.cat([g.reshape(-1).to(torch.int8) for g in out8])
+        return torch.cat([g.reshape(B, -1).to(torch.int8) for g in out8], 1)
 
 
 _program_lock = threading.Lock()
@@ -621,6 +634,32 @@ def resolve_device(device) -> str:
     if dev == "cpu":
         return dev
     raise ValueError(f"unknown pass-1 device {device!r}")
+
+
+# Optional per-call hooks around the per-frame device round trip (upload,
+# program, packed fetch). The hybrid batch scheduler (parallel/batch.py)
+# installs an object whose start() acquires a device slot and done()
+# releases it, so a slot bounds in-flight device calls only, not the
+# encode's host phase. Scoped through a ContextVar, not a module global, so
+# two concurrent encode_batch calls in one process each see only their own
+# hooks, and pipeline._encode_streams copies the context into its colour
+# and alpha threads so both of an RGBA encode's device calls stay under the
+# installing call's bound. done() fires on success or failure.
+PASS1_HOOKS: "contextvars.ContextVar" = contextvars.ContextVar(
+    "cavif_tpu_torch_pass1_hooks", default=None
+)
+
+
+def _unpack(spec, packed: np.ndarray) -> dict:
+    """{((bw, bh), name): int8 grid} of one frame's packed row."""
+    out = {}
+    off = 0
+    for (shape, name, (nby, nbx)) in spec:
+        n = nby * nbx
+        out[(shape, name)] = packed[off : off + n].reshape(nby, nbx)
+        off += n
+    assert off == packed.size, (off, packed.size)
+    return out
 
 
 def run_pass1(
@@ -665,17 +704,78 @@ def run_pass1(
         float(ovh_block), float(ovh_split), float(rect_ovh),
     )
     prog = _program(key, matmul, device)
+    hooks = PASS1_HOOKS.get()
+    if hooks is not None:
+        hooks.start()
+    try:
+        with torch.inference_mode():
+            x = torch.from_numpy(np.ascontiguousarray(src)).to(device)
+            packed = prog(
+                x[None], _f32(dc_q), _f32(ac_q), _f32(lam),
+                int(tile_px[0]), int(tile_px[1]),
+            )[0].cpu().numpy()
+    finally:
+        if hooks is not None:
+            hooks.done()
+    return _unpack(prog.spec, packed)
+
+
+def run_pass1_batch(
+    srcs: np.ndarray,
+    *,
+    depth: int,
+    tile_px: tuple,
+    min_px: int,
+    max_px: int = 32,
+    use_deltas: bool,
+    dc_q: int,
+    ac_q: int,
+    lam: float,
+    ovh_block: float = 23.0,
+    ovh_split: float = 2.0,
+    rect_ovh: float = 4.0,
+    model: str = "ycbcr",
+    mesh=None,
+    device: str = "cuda",
+) -> list:
+    """Whole-batch device pass 1 over same-shaped images. srcs:
+    (B, H, W, 3) uint8 RGB (model "ycbcr") or (B, H, W) uint8 alpha planes
+    (model "mono"), H and W multiples of 64 (padded). One Pass1Program
+    call per sub-batch, so each kernel launches once per block shape for
+    the whole sub-batch. Returns a list of B per-image grid dicts in
+    run_pass1's format. `device` as in run_pass1 (bf16 matmul inputs on
+    the card, f32 on the CPU); a mesh is not supported yet."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "run_pass1_batch does not shard over a mesh yet")
+    if model not in ("ycbcr", "mono"):
+        raise ValueError(f"run_pass1_batch: model {model!r}")
+    device = resolve_device(device)
+    kw = dict(depth=depth, tile_px=tile_px, min_px=min_px, max_px=max_px,
+              use_deltas=use_deltas, dc_q=dc_q, ac_q=ac_q, lam=lam,
+              ovh_block=ovh_block, ovh_split=ovh_split, rect_ovh=rect_ovh,
+              model=model, device=device)
+    B, H, W = srcs.shape[:3]
+    # the reference's pixel budget per program call: larger batches run
+    # as sub-batches of at most max_b images
+    budget = int(os.environ.get("CAVIF_TPU_BATCH_PX", 4_200_000))
+    max_b = max(1, budget // (H * W))
+    if B > max_b:
+        out = []
+        for i in range(0, B, max_b):
+            out.extend(run_pass1_batch(srcs[i : i + max_b], **kw))
+        return out
+    P = 1 if model == "mono" else 3
+    key = (
+        H, W, depth, model, P,
+        int(min_px), int(max_px), bool(use_deltas),
+        float(ovh_block), float(ovh_split), float(rect_ovh),
+    )
+    prog = _program(key, "f32" if device == "cpu" else "bf16", device)
     with torch.inference_mode():
-        x = torch.from_numpy(np.ascontiguousarray(src)).to(device)
+        x = torch.from_numpy(np.ascontiguousarray(srcs)).to(device)
         packed = prog(
             x, _f32(dc_q), _f32(ac_q), _f32(lam),
             int(tile_px[0]), int(tile_px[1]),
         ).cpu().numpy()
-    out = {}
-    off = 0
-    for (shape, name, (nby, nbx)) in prog.spec:
-        n = nby * nbx
-        out[(shape, name)] = packed[off : off + n].reshape(nby, nbx)
-        off += n
-    assert off == packed.size, (off, packed.size)
-    return out
+    return [_unpack(prog.spec, packed[b]) for b in range(B)]

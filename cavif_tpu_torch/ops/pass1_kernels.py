@@ -22,35 +22,25 @@ precision did) and accumulates in f32; a float32 matrix keeps full f32
 inputs. The kernels take bfloat16 matrices only.
 
 The CUDA sources are compiled with nvcc into plain-C shared libraries under
-cavif_tpu_torch/_build/ on the first CUDA call, and loaded with ctypes.
-Importing this module needs neither nvcc nor a GPU.
+cavif_tpu_torch/_build/ on the first CUDA call, and loaded with ctypes
+(ops/cuda_build.py). Importing this module needs neither nvcc nor a GPU.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
 import threading
-from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-_CSRC = _PKG / "csrc"
-_BUILD = _PKG / "_build"
-_SOURCES = {"dir_cost": "pass1_dir_cost.cu", "nd_cost": "pass1_nd_cost.cu"}
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+from . import cuda_build
+from .cuda_build import check as _check
 
 # launches of each kernel in this process (the plain versions count nothing)
 LAUNCHES = {"dir_cost": 0, "nd_cost": 0}
 
 _lock = threading.Lock()
-_libs: dict = {}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def reset_launches() -> None:
@@ -62,78 +52,6 @@ def reset_launches() -> None:
 def _count(name: str) -> None:
     with _lock:
         LAUNCHES[name] += 1
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    found = shutil.which("nvcc") or str(Path(cuda_home) / "bin" / "nvcc")
-    if not Path(found).exists():
-        raise RuntimeError("nvcc not found (set CUDA_HOME)")
-    return found
-
-
-def build(names=tuple(_SOURCES)) -> dict:
-    """Compile the named kernels' sources (one nvcc process each, all
-    started together) into _build/lib<name>.so unless an up-to-date library
-    is there. Returns {name: (seconds, nvcc output)}; the output carries
-    ptxas's register / shared-memory / spill report."""
-    import time
-
-    _BUILD.mkdir(exist_ok=True)
-    procs, done = {}, {}
-    t0 = time.perf_counter()
-    for name in names:
-        src = _CSRC / _SOURCES[name]
-        so = _BUILD / f"lib{name}.so"
-        if so.exists() and so.stat().st_mtime >= src.stat().st_mtime:
-            done[name] = (0.0, "")
-            continue
-        tmp = so.with_suffix(f".so.{os.getpid()}")
-        procs[name] = (subprocess.Popen(
-            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        ), tmp, so)
-    for name, (p, tmp, so) in procs.items():
-        out, _ = p.communicate()
-        if p.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed for {_SOURCES[name]}:\n{out.decode()}")
-        os.replace(tmp, so)
-        done[name] = (time.perf_counter() - t0, out.decode())
-    return done
-
-
-def _lib(name: str):
-    lib = _libs.get(name)
-    if lib is not None:
-        return lib
-    with _lock:
-        lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        build((name,))
-        lib = ctypes.CDLL(str(_BUILD / f"lib{name}.so"))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if name == "dir_cost":
-            fn = lib.pass1_dir_cost
-            fn.argtypes = [p, p, p, p, p, p, p, f, p, i, i, i, i, p]
-        else:
-            fn = lib.pass1_nd_cost
-            fn.argtypes = [p, p, p, p, p, p, p, p, p, p, f, p, i, i, i, p]
-        fn.restype = ctypes.c_int
-        _libs[name] = lib
-        return lib
-
-
-def _check(name, t, shape, dtype, device):
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
 
 
 def _mm(x, w):
@@ -189,7 +107,9 @@ def dir_cost(ext, bkt, mk, cc, inv, scale, bias, lam):
     out = torch.empty((R, cdir), dtype=f32, device=dev)
     if R == 0:
         return out
-    fn = _lib("dir_cost").pass1_dir_cost
+    fn = cuda_build.function(
+        "dir_cost", "pass1_dir_cost",
+        [_P, _P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _P])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(ext.data_ptr(), bkt.data_ptr(), mk.data_ptr(),
@@ -271,7 +191,9 @@ def nd_cost(above, left, sc, blocks, kt, whv, wwv, inv, scale, bias, lam):
     out = torch.empty((R, 5), dtype=f32, device=dev)
     if R == 0:
         return out
-    fn = _lib("nd_cost").pass1_nd_cost
+    fn = cuda_build.function(
+        "nd_cost", "pass1_nd_cost",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _P])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(above.data_ptr(), left.data_ptr(), sc.data_ptr(),

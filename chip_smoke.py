@@ -6,14 +6,20 @@
 Phases, each of which fails the run (exit code != 0) when it fails:
 
 1. card: the GPU's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: nvcc compiles both pass-1 kernels from cavif_tpu_torch/csrc/;
+2. build: nvcc compiles the three kernels from cavif_tpu_torch/csrc/ (one
+   process per source, all started together);
 3. kernels: for each of the ten block shapes that the 1024x1024 Q80 speed-4
    encode prices, the real ShapeCost inputs of the test image go through
    each kernel and its plain PyTorch version (both with bf16 matmul
    inputs): the argmin over candidates must differ on fewer than 1e-3 of the
    rows. Times (CUDA events) of the kernel, the plain version and one
    torch.matmul of the bf16 product alone, beside the least time the card
-   could take for the same work;
+   could take for the same work; then K3 (the block search's 13-candidate
+   costs) on the three 10-bit YCbCr planes of the same image at the same
+   quantizers, for each n in {4, 8, 16, 32}: argmin against its plain
+   version below 1e-3 of the blocks and the costs bit-equal, CUDA-event
+   times of kernel, plain version and a torch.matmul pair computing the 13
+   candidates' D R D^T alone, and the bound;
 4. the main path at full size: Encoder.new().with_quality(80).with_speed(4)
    on the 1024x1024 RGB test image, and on an RGBA variant, with every
    kernel's launch count set to 0 just before and read just after; the AVIF
@@ -22,7 +28,19 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    pre-filter reconstruction (FrameEncoder._recon_full) at least the
    host's minus 0.1 dB; the whole
    device pass 1 on a 256x256 input agrees with the CPU plain path;
-5. one JSON line listing the kernels, the card line, and last the JSON
+5. the block-search path at full size: plane_partition_search (tiers
+   8-32: three K3 launches) and plane_mode_search at n = 16 (one), each
+   with K3's count set to 0 just before and read just after; the same
+   partition search with backend="plain" (the plain version on the card)
+   gives the same modes, costs and codes; at 256x256 the card's modes and
+   codes agree with device="cpu";
+6. the batched path: encode_batch_sharded on four 1024x1024 RGB images and
+   one RGBA image (host stealing off), K1/K2 launch counts (one launch
+   per block shape and sub-batch, not per image), every AVIF parsed, the
+   four colour streams inside the host envelope as in phase 4, wall time
+   and MP/s, beside the same images encoded one after another and through
+   encode_batch (the hybrid card + host scheduler);
+7. one JSON line listing the kernels, the card line, and last the JSON
    result line.
 
 Without a CUDA card, or outside a checkout of the repository, it exits
@@ -51,17 +69,19 @@ ARGMIN_TOL = 1e-3
 REPLACES = {
     "dir_cost": "cavif_tpu/ops/device_pass1.py:594",  # _fused_dir_cost
     "nd_cost": "cavif_tpu/ops/device_pass1.py:475",   # _fused_nd_cost
+    "mode_cost": "cavif_tpu/ops/pallas_search.py:101",  # _pallas_kernel
 }
 SOURCES = {
     "dir_cost": "cavif_tpu_torch/csrc/pass1_dir_cost.cu",
     "nd_cost": "cavif_tpu_torch/csrc/pass1_nd_cost.cu",
+    "mode_cost": "cavif_tpu_torch/csrc/mode_search_cost.cu",
 }
 
 
-def _test_image(h: int, w: int) -> np.ndarray:
+def _test_image(h: int, w: int, seed: int = 42) -> np.ndarray:
     """Photo-like synthetic content: smooth shading + texture + edges
-    (the repository benchmark's generator)."""
-    rng = np.random.default_rng(42)
+    (the repository benchmark's generator; seed 42 is its image)."""
+    rng = np.random.default_rng(seed)
     y, x = np.mgrid[0:h, 0:w].astype(np.float64)
     base = (
         110 + 80 * np.sin(x / 97.0) * np.cos(y / 61.0)
@@ -76,14 +96,15 @@ def _test_image(h: int, w: int) -> np.ndarray:
 
 
 def _peaks(name: str):
-    """(bytes/s, bf16 FLOP/s) of the card from its data sheet, dense."""
+    """(bytes/s, bf16 FLOP/s, f32 FLOP/s outside the tensor cores) of the
+    card from its data sheet, dense."""
     if "PCIe" in name:
-        return 2.0e12, 756e12
+        return 2.0e12, 756e12, 51e12
     if "NVL" in name:
-        return 3.9e12, 835e12
+        return 3.9e12, 835e12, 60e12
     if "H200" in name:
-        return 4.8e12, 989e12
-    return 3.35e12, 989e12  # H100 SXM
+        return 4.8e12, 989e12, 67e12
+    return 3.35e12, 989e12, 67e12  # H100 SXM
 
 
 def _cuda_ms(torch, fn, reps: int) -> float:
@@ -123,9 +144,9 @@ def phase_card(torch):
     return smi
 
 
-def phase_build(pk):
+def phase_build(cb):
     t0 = time.perf_counter()
-    done = pk.build()
+    done = cb.build()
     secs = time.perf_counter() - t0
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_build.txt"), "w") as f:
@@ -135,10 +156,10 @@ def phase_build(pk):
         regs = [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln]
         print(f"[build] {name}: " + " | ".join(regs[-2:]))
-    print(f"[build] both kernels built in {secs:.2f} s")
-    # load both libraries now, so the first timed launch pays no dlopen
+    print(f"[build] {len(done)} kernels built in {secs:.2f} s")
+    # load the libraries now, so the first timed launch pays no dlopen
     for name in done:
-        pk._lib(name)
+        cb.load(name)
 
 
 def _shape_inputs(torch, dp, geo, planes, use_deltas):
@@ -155,7 +176,7 @@ def _shape_inputs(torch, dp, geo, planes, use_deltas):
 
 
 def phase_kernels(torch, pk, dp, geo, planes, use_deltas, peaks):
-    bw_rate, fl_rate = peaks
+    bw_rate, fl_rate, _ = peaks
     inputs = _shape_inputs(torch, dp, geo, planes, use_deltas)
     rows = []
     for (bw, bh), (sc, nd, dr) in inputs.items():
@@ -342,6 +363,245 @@ def phase_small_reference(dp, geo, img):
         raise AssertionError("card pass 1 disagrees with the CPU plain path")
 
 
+def phase_search_kernel(torch, sk, bs, geo, planes, peaks):
+    """K3 against its plain version on the card at the four tiers of the
+    1 MP frame's three planes."""
+    bw_rate, _, f32_rate = peaks
+    rows = []
+    for n in sk.SIZES:
+        kw = bs.search_inputs(planes, n, geo.depth, geo.dc_q, geo.ac_q,
+                              geo.lam)
+        NB = kw["blocks"].shape[0]
+        got = sk.mode_cost(**kw)
+        ref = sk.mode_cost_ref(**kw)
+        torch.cuda.synchronize()
+        if tuple(got.shape) != (NB, 13) or not bool(
+                torch.isfinite(got).all()):
+            raise AssertionError(f"mode_cost n={n}: bad costs {got.shape}")
+        mism = float((got.argmin(1) != ref.argmin(1)).float().mean())
+        diff = (got - ref).abs()
+        max_abs = float(diff.max())
+        rel = float((diff / ref.abs().clamp_min(1.0)).max())
+        # library yardstick: the 13 candidates' D R D^T alone, as one
+        # batched torch.matmul pair (the port never calls it)
+        preds = torch.cat([
+            sk.nondir_preds(kw["above"], kw["left"], kw["scal"], kw["smw"]),
+            sk.dir_preds(kw["ext"], kw["taps"]).view(NB, 6, n, n)], 1)
+        res = (kw["blocks"][:, None] - preds).float()
+        d, dt = kw["dct"], kw["dct"].T.contiguous()
+        ms = _cuda_ms(torch, lambda: sk.mode_cost(**kw), 20)
+        plain_ms = _cuda_ms(torch, lambda: sk.mode_cost_ref(**kw), 5)
+        lib_ms = _cuda_ms(torch, lambda: torch.matmul(torch.matmul(d, res),
+                                                      dt), 20)
+        del preds, res
+        flops = 13.0 * NB * (4.0 * n ** 3 + 10.0 * n * n)
+        nbytes = 4.0 * NB * (n * n + 2 * n + 2 + 4 * n + 1 + 13) \
+            + 4.0 * (6 * n * n + n + n * n)
+        t_bytes = nbytes / bw_rate * 1e3
+        t_ops = flops / f32_rate * 1e3
+        row = dict(
+            name="mode_cost", shape=f"{n}x{n}", rows=NB,
+            argmin_mismatch=mism, max_abs_err=max_abs, max_rel_err=rel,
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes > t_ops else "operations",
+        )
+        rows.append(row)
+        print("[k3] n=%-2d NB=%-6d argmin %.2e  max|d| %.4g rel %.3g  "
+              "kernel %.4f ms  plain %.4f ms  matmul pair %.4f ms  "
+              "bound %.4f ms (%s)" % (
+                  n, NB, mism, max_abs, rel, ms, plain_ms, lib_ms,
+                  row["bound_ms"], row["bound_by"]))
+        if mism >= ARGMIN_TOL:
+            raise AssertionError(
+                f"mode_cost n={n}: argmin differs on {mism:.2e} of blocks "
+                f"(limit {ARGMIN_TOL})")
+        # K3 does the plain version's f32 operations in the same order, so
+        # its costs are bit-equal: any difference is a fault, even one that
+        # leaves the argmin alone (a constant or scale off on a candidate)
+        if max_abs > 0.0:
+            raise AssertionError(
+                f"mode_cost n={n}: costs differ from the plain version by "
+                f"up to {max_abs:.6g} (bit-equal expected)")
+    torch.cuda.synchronize()
+    return rows
+
+
+def phase_block_search(torch, sk, bs, geo, img):
+    """The block-search entry points at full size on the card, with K3's
+    launch count read around each; then 256x256 card vs CPU."""
+    from cavif_tpu_torch.ops import colorspace
+
+    planes = np.ascontiguousarray(
+        colorspace.rgb_to_ycbcr_host(img, depth=10).transpose(2, 0, 1))
+    args = (geo.dc_q, geo.ac_q, geo.lam, 10)
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    tiers, codes = bs.plane_partition_search(planes, *args, min_n=8,
+                                             max_n=32)
+    wall = time.perf_counter() - t0
+    part = sk.LAUNCHES["mode_cost"]
+    for n, (m, c) in tiers.items():
+        if m.shape != (3, SIZE // n, SIZE // n) or not np.isfinite(c).all():
+            raise AssertionError(f"partition tier {n}: {m.shape}")
+        if int(m.min()) < 0 or int(m.max()) > 12:
+            raise AssertionError(f"partition tier {n}: mode out of range")
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    modes = bs.plane_mode_search(planes, *args, n=16)
+    wall16 = time.perf_counter() - t0
+    one = sk.LAUNCHES["mode_cost"]
+    print(f"[search] plane_partition_search 3x{SIZE}x{SIZE} tiers 8-32: "
+          f"{wall:.4f} s, K3 launches {part}; plane_mode_search n=16: "
+          f"{wall16:.4f} s, K3 launches {one}")
+    if part != 3 or one != 1:
+        raise AssertionError(f"K3 launches {part} / {one}, expected 3 / 1")
+    if modes.shape != (3, SIZE // 16, SIZE // 16):
+        raise AssertionError(f"plane_mode_search shape {modes.shape}")
+
+    # the whole partition search again on the plain version, on the card
+    tp, cp = bs.plane_partition_search(planes, *args, min_n=8, max_n=32,
+                                       backend="plain")
+    dm = sum(int((tiers[n][0] != tp[n][0]).sum()) for n in tp)
+    dcost = max(float(np.abs(tiers[n][1] - tp[n][1]).max()) for n in tp)
+    dc = sum(int((codes[n] != cp[n]).sum()) for n in cp)
+    print(f"[search] full size K3 vs backend=\"plain\": modes differ on "
+          f"{dm}, codes on {dc}, max cost |d| {dcost:.6g}")
+    if dm or dc or dcost > 0.0:
+        raise AssertionError("the partition search on K3 differs from its "
+                             "plain version")
+
+    small = np.ascontiguousarray(planes[:, :256, :256])
+    tc, cc = bs.plane_partition_search(small, *args, device="cuda")
+    tp, cp = bs.plane_partition_search(small, *args, device="cpu")
+    dm = sum(int((tc[n][0] != tp[n][0]).sum()) for n in tp)
+    nm = sum(tp[n][0].size for n in tp)
+    dc = sum(int((cc[n] != cp[n]).sum()) for n in cp)
+    nc = sum(cp[n].size for n in cp)
+    print(f"[search] 256x256 card vs CPU: modes differ on {dm} of {nm}, "
+          f"codes on {dc} of {nc}")
+    if dm >= 1e-3 * nm or dc >= 1e-3 * nc:
+        raise AssertionError("card block search disagrees with the CPU")
+    return part
+
+
+def phase_batch(torch, pk, dp, img0):
+    """encode_batch_sharded on four RGB images and one RGBA image at
+    1024x1024, then the colour streams against the host cascade."""
+    from dataclasses import replace as dc_replace
+
+    from cavif_tpu_torch import Encoder
+    from cavif_tpu_torch.av1.config import AV1Config
+    from cavif_tpu_torch.av1.encoder import FrameEncoder, frame_geometry
+    from cavif_tpu_torch.av1.speed import SpeedTweaks
+    from cavif_tpu_torch.container.parse import read_avif
+    from cavif_tpu_torch.ops import colorspace
+    from cavif_tpu_torch.ops.quality import quality_to_quantizer
+    from cavif_tpu_torch.parallel import batch as pbatch
+
+    os.environ["CAVIF_TPU_SHARDED_STEAL"] = "0"
+    rgbs = [img0] + [_test_image(SIZE, SIZE, s) for s in (43, 44, 45)]
+    yy, xx = np.mgrid[0:SIZE, 0:SIZE]
+    alpha = np.clip((xx + yy) * 255 // (2 * SIZE - 2), 0, 255).astype(
+        np.uint8)
+    imgs = rgbs + [np.dstack([_test_image(SIZE, SIZE, 46), alpha])]
+    enc = Encoder.new().with_quality(QUALITY).with_speed(SPEED)
+
+    calls = []  # batch sizes of run_pass1_batch calls
+    real = dp.run_pass1_batch
+
+    def counted(srcs, **kw):
+        calls.append(int(srcs.shape[0]))
+        return real(srcs, **kw)
+
+    dp.run_pass1_batch = counted
+    try:
+        t0 = time.perf_counter()
+        pbatch.encode_batch_sharded(imgs, enc)
+        warm = time.perf_counter() - t0
+        calls.clear()
+        pk.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pbatch.encode_batch_sharded(imgs, enc)
+        wall = time.perf_counter() - t0
+        launches = dict(pk.LAUNCHES)
+    finally:
+        dp.run_pass1_batch = real
+    mp = len(imgs) * SIZE * SIZE / 1e6
+    print(f"[batch] encode_batch_sharded {len(rgbs)} RGB + 1 RGBA "
+          f"{SIZE}x{SIZE} Q{QUALITY} s{SPEED}: {wall:.4f} s "
+          f"({mp / wall:.4f} MP/s; first run {warm:.4f} s), run_pass1_batch "
+          f"calls of B={calls}, launches {launches}")
+    per_call = len(dp.SQ_TIERS) + len(dp.RECT_SHAPES)  # fused shapes
+    for name, k in launches.items():
+        if k <= 0 or k != per_call * len(calls):
+            raise AssertionError(
+                f"{name}: {k} launches for {len(calls)} batched calls")
+    if len(calls) >= len(imgs) + 1:
+        raise AssertionError("the batch ran one pass-1 call per stream")
+    for data in out:
+        info = read_avif(data)
+        if (info.width, info.height, info.bit_depth) != (SIZE, SIZE, 10):
+            raise AssertionError(f"parsed AVIF header {info}")
+    if read_avif(out[-1]).alpha_item is None:
+        raise AssertionError("batched RGBA AVIF carries no alpha item")
+
+    # yardsticks on the same images: one encode after another, and
+    # encode_batch (the hybrid card + host scheduler, PASS1_HOOKS slots)
+    t0 = time.perf_counter()
+    for x in imgs:
+        (enc.encode_rgba if x.shape[2] == 4 else enc.encode_rgb)(x)
+    seq = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = pbatch.encode_batch(imgs, enc)
+    hyb = time.perf_counter() - t0
+    for r in res:
+        if r.error is not None:
+            raise r.error
+        read_avif(r.encoded.avif_file)
+    print(f"[batch] same images one after another: {seq:.4f} s "
+          f"({mp / seq:.4f} MP/s); encode_batch (hybrid scheduler): "
+          f"{hyb:.4f} s ({mp / hyb:.4f} MP/s)")
+
+    # the four colour streams: the sharded path's first colour chunk
+    # again (same call, same grids), its frames must be the ones in the
+    # AVIFs, and each stays inside the host cascade's envelope
+    q = quality_to_quantizer(float(QUALITY))
+    cfg = AV1Config(width=SIZE, height=SIZE, bit_depth=10, quantizer=q,
+                    tweaks=SpeedTweaks.from_preset(SPEED, q),
+                    chroma_sampling="444", full_range=True,
+                    matrix_coefficients=6, threads=1, tune=enc.tune,
+                    device="cuda")
+    g = frame_geometry(cfg)
+    grids = dp.run_pass1_batch(
+        np.stack(rgbs), depth=10, tile_px=(g.th, g.tw),
+        min_px=g.min_leaf_mi * 4, max_px=g.max_leaf_mi * 4,
+        use_deltas=cfg.tweaks.fine_directional_intra, dc_q=g.dc_q,
+        ac_q=g.ac_q, lam=g.lam, ovh_block=FrameEncoder.DEV_OVH_BLOCK,
+        model="ycbcr", device="cuda")
+    for i, rgb in enumerate(rgbs):
+        planes = colorspace.rgb_to_ycbcr_host(rgb, depth=10)
+        ref_planes = [planes[..., p] for p in range(3)]
+        fe = FrameEncoder(planes, cfg, src8=rgb)
+        fe._device_search = "inject"
+        fe._dev_state = (grids[i], fe._dev_part_dict(grids[i]))
+        data = fe.encode()
+        if data != read_avif(out[i]).primary_item:
+            raise AssertionError(f"image {i}: colour frame differs from the "
+                                 "batched AVIF's")
+        cp = _psnr(ref_planes, list(fe._recon_full()), SIZE, SIZE, 10)
+        host = FrameEncoder(planes, dc_replace(cfg, device="off"), src8=rgb)
+        hdata = host.encode()
+        hp = _psnr(ref_planes, list(host._recon_full()), SIZE, SIZE, 10)
+        print(f"[batch] image {i} colour: card {len(data)} B {cp:.4f} dB, "
+              f"host {len(hdata)} B {hp:.4f} dB")
+        if len(data) > 1.05 * len(hdata) or cp < hp - 0.1:
+            raise AssertionError(f"batched image {i} outside the envelope")
+    return dict(wall=wall, mp_s=mp / wall, calls=calls, launches=launches,
+                sequential_s=seq, encode_batch_s=hyb)
+
+
 def main() -> int:
     import torch
 
@@ -353,15 +613,18 @@ def main() -> int:
     from cavif_tpu_torch.av1.config import AV1Config
     from cavif_tpu_torch.av1.encoder import frame_geometry
     from cavif_tpu_torch.av1.speed import SpeedTweaks
+    from cavif_tpu_torch.ops import block_search as bs
+    from cavif_tpu_torch.ops import cuda_build as cb
     from cavif_tpu_torch.ops import device_pass1 as dp
     from cavif_tpu_torch.ops import pass1_kernels as pk
+    from cavif_tpu_torch.ops import search_kernels as sk
     from cavif_tpu_torch.ops.quality import quality_to_quantizer
 
     dp.resolve_device("cuda")  # also pins TF32 off
     smi = phase_card(torch)
     kind = torch.cuda.get_device_name(0)
     peaks = _peaks(kind)
-    phase_build(pk)
+    phase_build(cb)
 
     img = _test_image(SIZE, SIZE)
     q = quality_to_quantizer(float(QUALITY))
@@ -375,14 +638,20 @@ def main() -> int:
         planes = dp._convert(torch.from_numpy(img).cuda(), "ycbcr", 10)
         rows = phase_kernels(torch, pk, dp, geo, planes,
                              cfg.tweaks.fine_directional_intra, peaks)
+        rows += phase_search_kernel(torch, sk, bs, geo, planes, peaks)
     del planes
     phase_small_reference(dp, geo, img)
     launches = phase_encode(torch, pk, img)
     phase_quality(img)
+    launches["mode_cost"] = phase_block_search(torch, sk, bs, geo, img)
+    phase_batch(torch, pk, dp, img)
 
     kernels = []
-    for name in ("dir_cost", "nd_cost"):
-        mine = [r for r in rows if r["name"] == name]
+    for name in ("dir_cost", "nd_cost", "mode_cost"):
+        # K3's row sums the tiers that its counted path (the partition
+        # search, tiers 8-32) runs; the n = 4 tier stands in its [k3] line
+        mine = [r for r in rows if r["name"] == name
+                and not (name == "mode_cost" and r["shape"] == "4x4")]
         sums = {k: float(sum(r[k] for r in mine))
                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
         by_ops = sum(r["bound_ms"] for r in mine
@@ -397,7 +666,9 @@ def main() -> int:
             else "bytes",
             library_ms=sums["library_ms"],
         ))
-    print("[kernels] times are per frame, summed over the ten block shapes")
+    print("[kernels] times are per 1024x1024 frame, summed over the ten "
+          "block shapes (K1, K2; launches per RGB encode) or the tiers 8, 16 "
+          "and 32 (K3; launches per plane_partition_search)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,6 @@ VERBATIM = (
     "av1/__init__.py",
     "av1/config.py",
     "av1/speed.py",
-    "av1/tables.py",
     "av1/transforms.py",
     "av1/predict.py",
     "av1/itx.py",
@@ -52,9 +51,13 @@ EDITED = (
     "__init__.py",
     "pipeline.py",
     "av1/encoder.py",
+    "av1/tables.py",
     "ops/colorspace.py",
     "ops/dirtyalpha.py",
     "ops/device_pass1.py",
+    "ops/block_search.py",
+    "parallel/__init__.py",
+    "parallel/batch.py",
 )
 
 

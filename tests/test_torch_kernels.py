@@ -162,8 +162,8 @@ def test_plain_versions_match_materialized_chain():
 
 
 def test_import_needs_no_nvcc_or_gpu():
-    """Importing the kernels module (and the whole port) and running a
-    wrapper on CPU tensors never starts nvcc."""
+    """Importing the kernels modules (and the whole port) and running the
+    wrappers on CPU tensors never starts nvcc."""
     code = f"""
 import subprocess, sys
 sys.path.insert(0, {str(ROOT)!r})
@@ -172,12 +172,20 @@ def refuse(*a, **k):
 subprocess.Popen = refuse
 import torch
 import cavif_tpu_torch
+from cavif_tpu_torch.ops import block_search as bs
+from cavif_tpu_torch.ops import cuda_build
 from cavif_tpu_torch.ops import pass1_kernels as pk
+from cavif_tpu_torch.ops import search_kernels as sk
 mk = torch.zeros(17, 8 * 16)
 v = torch.zeros(16)
 out = pk.dir_cost(torch.zeros(4, 17), torch.zeros(4, 16), mk, v, v, v, v, 1.0)
 assert out.shape == (4, 8)
-assert pk._libs == {{}} and pk.LAUNCHES == {{"dir_cost": 0, "nd_cost": 0}}
+planes = torch.zeros(1, 16, 16, dtype=torch.int32)
+kw = bs.search_inputs(planes, 8, 10, 100, 120, 30.0)
+assert sk.mode_cost(**kw).shape == (4, 13)
+assert cuda_build._libs == {{}}
+assert pk.LAUNCHES == {{"dir_cost": 0, "nd_cost": 0}}
+assert sk.LAUNCHES == {{"mode_cost": 0}}
 print("ok")
 """
     env = {**os.environ, "PATH": "/usr/bin:/bin",
