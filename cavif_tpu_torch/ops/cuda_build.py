@@ -24,6 +24,7 @@ SOURCES = {
     "dir_cost": "pass1_dir_cost.cu",
     "nd_cost": "pass1_nd_cost.cu",
     "mode_cost": "mode_search_cost.cu",
+    "dir_cost_tc": "dir_cost_tc.cu",
 }
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -29,6 +29,7 @@ from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 
 @dataclass
@@ -181,8 +182,12 @@ def _device_engaged() -> bool:
 def _child_disable_device() -> None:
     """Forked pool workers must not touch CUDA: the parent's CUDA context
     does not survive fork, and N workers would contend for the one card.
-    An encoder that leaves the device unset encodes on the host path."""
+    An encoder that leaves the device unset encodes on the host path.
+    Each child also runs torch on one thread: the OpenMP thread team of a
+    parent that has run a parallel torch op does not survive fork, and a
+    child entering a parallel region would wait on it forever."""
     os.environ["CAVIF_TPU_DEVICE_SEARCH"] = "0"
+    torch.set_num_threads(1)
 
 
 def _fork_ok() -> bool:

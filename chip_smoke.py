@@ -5,21 +5,36 @@
 
 Phases, each of which fails the run (exit code != 0) when it fails:
 
-1. card: the GPU's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: nvcc compiles the three kernels from cavif_tpu_torch/csrc/ (one
-   process per source, all started together);
+1. card: the GPU's name, power limit and maximum SM clock (nvidia-smi),
+   torch and CUDA versions;
+2. build: nvcc compiles the four kernel sources from cavif_tpu_torch/csrc/
+   (one process per source, all started together);
 3. kernels: for each of the ten block shapes that the 1024x1024 Q80 speed-4
    encode prices, the real ShapeCost inputs of the test image go through
    each kernel and its plain PyTorch version (both with bf16 matmul
    inputs): the argmin over candidates must differ on fewer than 1e-3 of the
    rows. Times (CUDA events) of the kernel, the plain version and one
    torch.matmul of the bf16 product alone, beside the least time the card
-   could take for the same work; then K3 (the block search's 13-candidate
+   could take for the same work (the larger of the bytes' time and the
+   operations' time: tensor-core FLOPs beside the CUDA cores' FP32 FLOPs
+   and epilogue instructions); then K3 (the block search's 13-candidate
    costs) on the three 10-bit YCbCr planes of the same image at the same
    quantizers, for each n in {4, 8, 16, 32}: argmin against its plain
    version below 1e-3 of the blocks and the costs bit-equal, CUDA-event
    times of kernel, plain version and a torch.matmul pair computing the 13
    candidates' D R D^T alone, and the bound;
+   then the prototype harnesses' kernels K4 (fused_dir_cost) and K5
+   (dir_ablation) on the harness inputs of a 1024x1024 three-plane frame at
+   every tier b in {4, 8, 16, 32} (cavif_tpu_torch/tools/dir_proto.build):
+   K4 in both reduce modes at every tile, K5 in every variant at the
+   default tile, each against its plain version (bf16 inputs): argmin below
+   1e-3 of the rows and fewer than 1e-3 of the costs beyond rtol 2e-4 (for
+   mm_only and red_bf16: 2^-8 of the summed lane values' magnitudes); K4
+   on fewer rows gives the same rows bit for bit, K5 "full" equals K4
+   "matmul"; times beside the plain version, one torch.matmul of the bf16
+   product and the bound; K4 on K1's real inputs of the four square
+   shapes, timed beside K1; then one counted call of each harness per tier
+   (four launches each);
 4. the main path at full size: Encoder.new().with_quality(80).with_speed(4)
    on the 1024x1024 RGB test image, and on an RGBA variant, with every
    kernel's launch count set to 0 just before and read just after; the AVIF
@@ -66,15 +81,26 @@ SHAPES = ((4, 4), (8, 8), (16, 16), (32, 32),
 SIZE = 1024
 QUALITY, SPEED = 80, 4
 ARGMIN_TOL = 1e-3
+# K4/K5 against their plain versions: rtol on each cost (a level flip at a
+# quantizer boundary moves a cost by about lam, so a share below ARGMIN_TOL
+# may exceed it); for mm_only and red_bf16 bf16's relative rounding of the
+# summed lane values instead
+COST_RTOL = 2e-4
+BF16_REL = 2.0 ** -8
+PROTO_TIERS = (4, 8, 16, 32)
 REPLACES = {
     "dir_cost": "cavif_tpu/ops/device_pass1.py:594",  # _fused_dir_cost
     "nd_cost": "cavif_tpu/ops/device_pass1.py:475",   # _fused_nd_cost
     "mode_cost": "cavif_tpu/ops/pallas_search.py:101",  # _pallas_kernel
+    "fused_dir_cost": "tools/pallas_proto.py:74",  # pallas_fused
+    "dir_ablation": "tools/pallas_proto2.py:17",   # make
 }
 SOURCES = {
     "dir_cost": "cavif_tpu_torch/csrc/pass1_dir_cost.cu",
     "nd_cost": "cavif_tpu_torch/csrc/pass1_nd_cost.cu",
     "mode_cost": "cavif_tpu_torch/csrc/mode_search_cost.cu",
+    "fused_dir_cost": "cavif_tpu_torch/csrc/dir_cost_tc.cu",
+    "dir_ablation": "cavif_tpu_torch/csrc/dir_cost_tc.cu",
 }
 
 
@@ -95,16 +121,34 @@ def _test_image(h: int, w: int, seed: int = 42) -> np.ndarray:
     return np.stack([r, lum, b], axis=-1).astype(np.uint8)
 
 
-def _peaks(name: str):
-    """(bytes/s, bf16 FLOP/s, f32 FLOP/s outside the tensor cores) of the
-    card from its data sheet, dense."""
+def _peaks(name: str, sms: int, clock_hz: float) -> dict:
+    """Rates of the card: bytes/s of device memory, dense bf16 tensor-core
+    FLOP/s and f32 FMA FLOP/s outside the tensor cores (data sheet), and
+    FP32 instructions/s (one per CUDA-core lane per clock: 128 lanes per SM
+    at the card's maximum SM clock)."""
     if "PCIe" in name:
-        return 2.0e12, 756e12, 51e12
-    if "NVL" in name:
-        return 3.9e12, 835e12, 60e12
-    if "H200" in name:
-        return 4.8e12, 989e12, 67e12
-    return 3.35e12, 989e12, 67e12  # H100 SXM
+        rates = (2.0e12, 756e12, 51e12)
+    elif "NVL" in name:
+        rates = (3.9e12, 835e12, 60e12)
+    elif "H200" in name:
+        rates = (4.8e12, 989e12, 67e12)
+    else:  # H100 SXM
+        rates = (3.35e12, 989e12, 67e12)
+    return dict(zip(("bytes", "bf16", "f32"), rates),
+                instr=float(sms) * 128.0 * clock_hz)
+
+
+def _bound(peaks, nbytes, bf16_flops=0.0, f32_flops=0.0, instr=0.0):
+    """(ms, "bytes" or "operations", (bytes ms, tensor-core ms, CUDA-core
+    ms)): the least time of a kernel that reads its inputs once and writes
+    its output once. Tensor-core products run beside the CUDA cores; f32
+    FMA FLOPs and other FP32 instructions share the CUDA cores and add."""
+    t_bytes = nbytes / peaks["bytes"] * 1e3
+    t_tc = bf16_flops / peaks["bf16"] * 1e3
+    t_cc = (f32_flops / peaks["f32"] + instr / peaks["instr"]) * 1e3
+    t_ops = max(t_tc, t_cc)
+    return (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations",
+            (t_bytes, t_tc, t_cc))
 
 
 def _cuda_ms(torch, fn, reps: int) -> float:
@@ -137,11 +181,18 @@ def phase_card(torch):
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
+    clock = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"[card] {smi}")
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} "
-          f"devices {torch.cuda.device_count()}")
-    return smi
+          f"devices {torch.cuda.device_count()}; {sms} SMs, max SM clock "
+          f"{clock} MHz")
+    return smi, sms, float(clock) * 1e6
 
 
 def phase_build(cb):
@@ -175,8 +226,19 @@ def _shape_inputs(torch, dp, geo, planes, use_deltas):
     return out
 
 
+# FP32 CUDA-core instructions per element of each kernel's epilogue,
+# counted from its source (an |x| folds into its operand): K1
+# (pass1_dir_cost.cu) per (row, candidate, lane): cp / 32 + cc, bkt - .,
+# lane_cost (11), the lane sum; K2 (pass1_nd_cost.cu) per (row, predictor,
+# lane): lane_cost and the sum, plus per (row, pixel) the five predictors,
+# residuals and their bf16 rounding; K4/K5 (dir_cost_tc.cu lane_value) per
+# (row, candidate, lane), the lane sum included
+EPI_INSTR = {"dir_cost": 15, "nd_cost": 12, "nd_pixel": 47,
+             "full": 15, "mm_only": 2, "no_quant": 5, "no_sign": 15,
+             "red_bf16": 16}
+
+
 def phase_kernels(torch, pk, dp, geo, planes, use_deltas, peaks):
-    bw_rate, fl_rate, _ = peaks
     inputs = _shape_inputs(torch, dp, geo, planes, use_deltas)
     rows = []
     for (bw, bh), (sc, nd, dr) in inputs.items():
@@ -193,6 +255,7 @@ def phase_kernels(torch, pk, dp, geo, planes, use_deltas, peaks):
                 plain=lambda: pk.dir_cost_ref(**dr),
                 lib=lambda: torch.matmul(ext16, dr["mk"]),
                 flops=2.0 * R * E * cdir * n2,
+                instr=EPI_INSTR["dir_cost"] * float(R) * cdir * n2,
                 bytes=4.0 * R * (E + n2 + cdir) + 2.0 * E * cdir * n2
                 + 16.0 * n2,
             ),
@@ -201,6 +264,8 @@ def phase_kernels(torch, pk, dp, geo, planes, use_deltas, peaks):
                 plain=lambda: pk.nd_cost_ref(**nd),
                 lib=lambda: torch.matmul(res16, nd["kt"]),
                 flops=5 * 2.0 * R * n2 * n2,
+                instr=(5 * EPI_INSTR["nd_cost"] + EPI_INSTR["nd_pixel"])
+                * float(R) * n2,
                 bytes=4.0 * R * (bw + bh + 2 + n2 + 5) + 2.0 * n2 * n2
                 + 20.0 * n2,
             ),
@@ -220,21 +285,21 @@ def phase_kernels(torch, pk, dp, geo, planes, use_deltas, peaks):
             ms = _cuda_ms(torch, w["kern"], reps_k)
             plain_ms = _cuda_ms(torch, w["plain"], reps_p)
             lib_ms = _cuda_ms(torch, w["lib"], reps_k)
-            t_bytes = w["bytes"] / bw_rate * 1e3
-            t_ops = w["flops"] / fl_rate * 1e3
+            bound, by, terms = _bound(peaks, w["bytes"], bf16_flops=w["flops"],
+                                      instr=w["instr"])
             row = dict(
                 name=name, shape=f"{bw}x{bh}", rows=R, argmin_mismatch=mism,
                 max_abs_err=max_abs, max_rel_err=rel, ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes > t_ops else "operations",
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                bound_by=by,
             )
             rows.append(row)
             print("[kernels] %-8s %-5s R=%-7d argmin %.2e  max|d| %.4g "
                   "rel %.3g  kernel %.4f ms  plain %.4f ms  matmul %.4f ms"
-                  "  bound %.4f ms (%s)" % (
+                  "  bound %.4f ms (%s; bytes %.4f, tensor cores %.4f, "
+                  "CUDA cores %.4f)" % (
                       name, row["shape"], R, mism, max_abs, rel, ms,
-                      plain_ms, lib_ms, row["bound_ms"], row["bound_by"]))
+                      plain_ms, lib_ms, bound, by, *terms))
             if mism >= ARGMIN_TOL:
                 raise AssertionError(
                     f"{name} {bw}x{bh}: argmin differs on {mism:.2e} of "
@@ -366,7 +431,6 @@ def phase_small_reference(dp, geo, img):
 def phase_search_kernel(torch, sk, bs, geo, planes, peaks):
     """K3 against its plain version on the card at the four tiers of the
     1 MP frame's three planes."""
-    bw_rate, _, f32_rate = peaks
     rows = []
     for n in sk.SIZES:
         kw = bs.search_inputs(planes, n, geo.depth, geo.dc_q, geo.ac_q,
@@ -394,24 +458,25 @@ def phase_search_kernel(torch, sk, bs, geo, planes, peaks):
         lib_ms = _cuda_ms(torch, lambda: torch.matmul(torch.matmul(d, res),
                                                       dt), 20)
         del preds, res
-        flops = 13.0 * NB * (4.0 * n ** 3 + 10.0 * n * n)
+        # the two DCT passes as f32 FLOPs (4 n^3 per candidate); the
+        # quantizer, about 11 FP32 instructions per coefficient, beside them
         nbytes = 4.0 * NB * (n * n + 2 * n + 2 + 4 * n + 1 + 13) \
             + 4.0 * (6 * n * n + n + n * n)
-        t_bytes = nbytes / bw_rate * 1e3
-        t_ops = flops / f32_rate * 1e3
+        bound, by, terms = _bound(peaks, nbytes,
+                                  f32_flops=13.0 * NB * 4.0 * n ** 3,
+                                  instr=13.0 * NB * 11.0 * n * n)
         row = dict(
             name="mode_cost", shape=f"{n}x{n}", rows=NB,
             argmin_mismatch=mism, max_abs_err=max_abs, max_rel_err=rel,
             ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes > t_ops else "operations",
+            bound_ms=bound, bound_by=by,
         )
         rows.append(row)
         print("[k3] n=%-2d NB=%-6d argmin %.2e  max|d| %.4g rel %.3g  "
               "kernel %.4f ms  plain %.4f ms  matmul pair %.4f ms  "
-              "bound %.4f ms (%s)" % (
+              "bound %.4f ms (%s; bytes %.4f, CUDA cores %.4f)" % (
                   n, NB, mism, max_abs, rel, ms, plain_ms, lib_ms,
-                  row["bound_ms"], row["bound_by"]))
+                  bound, by, terms[0], terms[2]))
         if mism >= ARGMIN_TOL:
             raise AssertionError(
                 f"mode_cost n={n}: argmin differs on {mism:.2e} of blocks "
@@ -425,6 +490,155 @@ def phase_search_kernel(torch, sk, bs, geo, planes, peaks):
                 f"up to {max_abs:.6g} (bit-equal expected)")
     torch.cuda.synchronize()
     return rows
+
+
+def _hold(torch, what, got, ref, tol):
+    """Raise unless `got` has `ref`'s shape, is finite, picks another
+    candidate than `ref` on fewer than ARGMIN_TOL of the rows and differs
+    by more than `tol` (elementwise) on fewer than ARGMIN_TOL of the costs.
+    Returns (argmin mismatch, max |d|, share beyond tol)."""
+    if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: bad costs {tuple(got.shape)}")
+    mism = float((got.argmin(1) != ref.argmin(1)).float().mean())
+    diff = (got - ref).abs()
+    over = float((diff > tol).float().mean())
+    if mism >= ARGMIN_TOL or over >= ARGMIN_TOL:
+        raise AssertionError(
+            f"{what}: argmin differs on {mism:.2e} of rows, {over:.2e} of "
+            f"costs beyond the tolerance (limits {ARGMIN_TOL})")
+    return mism, float(diff.max()), over
+
+
+def phase_proto(torch, prk, pk, dp, dir_proto, dir_ablation, inputs, peaks):
+    """K4 and K5 on the harness inputs of a 1024x1024 three-plane frame at
+    every tier (both reduce modes and every tile for K4, every variant at
+    the default tile for K5) and K4 on K1's real square-shape inputs, each
+    against its plain version with bf16-rounded inputs; then one counted
+    harness call of each per tier."""
+    rows, data = [], {}
+    for b in PROTO_TIERS:
+        R = 3 * (SIZE // b) ** 2
+        d = data[b] = dir_proto.build(b, R, 0)
+        kw = dir_proto.from_numpy(d, "cuda")
+        kw["mk"] = kw["mk"].to(torch.bfloat16)
+        E, n2, C = d["E"], d["n2"], d["C"]
+        nbytes = 4.0 * R * (E + n2 + C) + 2.0 * E * C * n2 + 16.0 * n2
+        flops = 2.0 * R * E * C * n2
+        # library yardstick: the bf16 product alone (the port never calls
+        # it)
+        ext16 = kw["ext"].to(torch.bfloat16)
+        lib_ms = _cuda_ms(torch, lambda: torch.matmul(ext16, kw["mk"]), 10)
+        del ext16
+        ref = prk.fused_dir_cost_ref(**kw)
+        tol = COST_RTOL * ref.abs().clamp_min(1.0)
+        plain_ms = _cuda_ms(torch, lambda: prk.fused_dir_cost_ref(**kw), 3)
+        bound, by, terms = _bound(peaks, nbytes, bf16_flops=flops,
+                                  instr=EPI_INSTR["full"] * float(R) * C * n2)
+        print("[proto] tier %-2d R=%-6d E=%-3d C=%d n2=%-4d plain %.4f ms  "
+              "matmul %.4f ms  bound %.4f ms (%s; bytes %.4f, tensor cores "
+              "%.4f, CUDA cores %.4f)" % (b, R, E, C, n2, plain_ms, lib_ms,
+                                          bound, by, *terms))
+        first = {}
+        for reduce in prk.REDUCE_MODES:
+            for tile in prk.TILES:
+                def run():
+                    return prk.fused_dir_cost(**kw, reduce=reduce, tile=tile)
+                got = run()
+                torch.cuda.synchronize()
+                what = f"k4 tier {b} {reduce} {tile[0]}x{tile[1]}"
+                mism, max_abs, over = _hold(torch, what, got, ref, tol)
+                ms = _cuda_ms(torch, run, 10)
+                first.setdefault(reduce, got)
+                rows.append(dict(
+                    name="fused_dir_cost", tier=b, mode=reduce, tile=tile,
+                    argmin_mismatch=mism, max_abs_err=max_abs, ms=ms,
+                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                    bound_by=by))
+                print(f"[proto] {what:<28} argmin {mism:.2e}  max|d| "
+                      f"{max_abs:.6g}  beyond tol {over:.2e}  kernel "
+                      f"{ms:.4f} ms")
+            # the ragged edge: fewer rows give the same rows bit for bit
+            Rr = R - 37
+            part = prk.fused_dir_cost(
+                **{**kw, "ext": kw["ext"][:Rr], "bkt": kw["bkt"][:Rr]},
+                reduce=reduce)
+            if not torch.equal(part, first[reduce][:Rr]):
+                raise AssertionError(f"k4 tier {b} {reduce}: {Rr} rows "
+                                     f"differ from the first rows of {R}")
+        for variant in prk.VARIANTS:
+            def run():
+                return prk.dir_ablation(**kw, variant=variant)
+            got = run()
+            vref = prk.dir_ablation_ref(**kw, variant=variant)
+            if variant in prk.BF16_REDUCE:
+                vtol = BF16_REL * prk.ablation_lanes(
+                    **kw, variant=variant).abs().sum(-1)
+            else:
+                vtol = COST_RTOL * vref.abs().clamp_min(1.0)
+            torch.cuda.synchronize()
+            what = f"k5 tier {b} {variant}"
+            mism, max_abs, over = _hold(torch, what, got, vref, vtol)
+            del vtol
+            if variant == "full" and not torch.equal(got, first["matmul"]):
+                raise AssertionError(f"{what}: differs from K4 'matmul'")
+            ms = _cuda_ms(torch, run, 10)
+            vplain_ms = _cuda_ms(
+                torch, lambda: prk.dir_ablation_ref(**kw, variant=variant), 3)
+            vbound, vby, vterms = _bound(
+                peaks, nbytes, bf16_flops=flops,
+                instr=EPI_INSTR[variant] * float(R) * C * n2)
+            rows.append(dict(
+                name="dir_ablation", tier=b, mode=variant,
+                tile=prk.DEFAULT_TILE, argmin_mismatch=mism,
+                max_abs_err=max_abs, ms=ms, plain_ms=vplain_ms,
+                library_ms=lib_ms, bound_ms=vbound, bound_by=vby))
+            print(f"[proto] {what:<28} argmin {mism:.2e}  max|d| "
+                  f"{max_abs:.6g}  beyond tol {over:.2e}  kernel {ms:.4f} "
+                  f"ms  plain {vplain_ms:.4f} ms  bound {vbound:.4f} ms "
+                  f"({vby}; CUDA cores {vterms[2]:.4f})")
+        del kw, ref, tol, first, got, vref
+        torch.cuda.empty_cache()
+
+    # K4 on K1's own inputs: the four square shapes of the encode
+    for s in (4, 8, 16, 32):
+        dr = inputs[(s, s)][2]
+        ref = pk.dir_cost_ref(**dr)
+        tol = COST_RTOL * ref.abs().clamp_min(1.0)
+        line = []
+        for reduce in prk.REDUCE_MODES:
+            def run():
+                return prk.fused_dir_cost(**dr, reduce=reduce)
+            got = run()
+            torch.cuda.synchronize()
+            mism, max_abs, over = _hold(torch, f"k4 real {s}x{s} {reduce}",
+                                        got, ref, tol)
+            line.append(f"K4 {reduce} {_cuda_ms(torch, run, 10):.4f} ms "
+                        f"(argmin {mism:.2e}, max|d| {max_abs:.6g}, beyond "
+                        f"tol {over:.2e})")
+        k1_ms = _cuda_ms(torch, lambda: pk.dir_cost(**dr), 10)
+        print(f"[k4] real {s}x{s} R={dr['ext'].shape[0]} "
+              f"cdir={ref.shape[1]}: {'; '.join(line)}; K1 {k1_ms:.4f} ms")
+    torch.cuda.synchronize()
+
+    # the counted run: one call of each harness per tier, at its defaults
+    outs = {}
+    prk.reset_launches()
+    for b, d in data.items():
+        kw = dir_proto.from_numpy(d, "cuda")
+        k4 = dir_proto.fused(d)(kw["ext"], kw["bkt"])
+        f, ext, bkt = dir_ablation.make(d, "full")
+        outs[b] = (k4, f(ext, bkt))
+    torch.cuda.synchronize()
+    launches = dict(prk.LAUNCHES)
+    print(f"[proto] counted harness calls over tiers {PROTO_TIERS}: "
+          f"launches {launches}")
+    if launches != {"fused_dir_cost": len(data), "dir_ablation": len(data)}:
+        raise AssertionError(f"K4/K5 launches {launches}, expected "
+                             f"{len(data)} each")
+    for b, (k4, k5) in outs.items():
+        if not torch.equal(k4, k5):
+            raise AssertionError(f"tier {b}: harness K4 and K5 'full' differ")
+    return rows, launches
 
 
 def phase_block_search(torch, sk, bs, geo, img):
@@ -617,13 +831,15 @@ def main() -> int:
     from cavif_tpu_torch.ops import cuda_build as cb
     from cavif_tpu_torch.ops import device_pass1 as dp
     from cavif_tpu_torch.ops import pass1_kernels as pk
+    from cavif_tpu_torch.ops import proto_kernels as prk
     from cavif_tpu_torch.ops import search_kernels as sk
     from cavif_tpu_torch.ops.quality import quality_to_quantizer
+    from cavif_tpu_torch.tools import dir_ablation, dir_proto
 
     dp.resolve_device("cuda")  # also pins TF32 off
-    smi = phase_card(torch)
+    smi, sms, clock_hz = phase_card(torch)
     kind = torch.cuda.get_device_name(0)
-    peaks = _peaks(kind)
+    peaks = _peaks(kind, sms, clock_hz)
     phase_build(cb)
 
     img = _test_image(SIZE, SIZE)
@@ -639,15 +855,26 @@ def main() -> int:
         rows = phase_kernels(torch, pk, dp, geo, planes,
                              cfg.tweaks.fine_directional_intra, peaks)
         rows += phase_search_kernel(torch, sk, bs, geo, planes, peaks)
+        inputs = _shape_inputs(torch, dp, geo, planes,
+                               cfg.tweaks.fine_directional_intra)
+        proto_rows, proto_launches = phase_proto(
+            torch, prk, pk, dp, dir_proto, dir_ablation, inputs, peaks)
+        del inputs
     del planes
     phase_small_reference(dp, geo, img)
     launches = phase_encode(torch, pk, img)
     phase_quality(img)
     launches["mode_cost"] = phase_block_search(torch, sk, bs, geo, img)
     phase_batch(torch, pk, dp, img)
+    launches.update(proto_launches)
+    # K4's and K5's rows sum the four tiers at the harnesses' defaults
+    # (reduce "matmul", variant "full", the default tile)
+    rows += [r for r in proto_rows if r["tile"] == prk.DEFAULT_TILE
+             and r["mode"] in ("matmul", "full")]
 
     kernels = []
-    for name in ("dir_cost", "nd_cost", "mode_cost"):
+    for name in ("dir_cost", "nd_cost", "mode_cost", "fused_dir_cost",
+                 "dir_ablation"):
         # K3's row sums the tiers that its counted path (the partition
         # search, tiers 8-32) runs; the n = 4 tier stands in its [k3] line
         mine = [r for r in rows if r["name"] == name
@@ -668,7 +895,9 @@ def main() -> int:
         ))
     print("[kernels] times are per 1024x1024 frame, summed over the ten "
           "block shapes (K1, K2; launches per RGB encode) or the tiers 8, 16 "
-          "and 32 (K3; launches per plane_partition_search)")
+          "and 32 (K3; launches per plane_partition_search); K4 and K5 "
+          "per harness frame, summed over the tiers 4-32 (launches: one "
+          "counted harness call per tier)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,21 @@ ROOT = Path(__file__).resolve().parent.parent
 ALL_SHAPES = [(s, s) for s in dp.SQ_TIERS + (64,)] + list(dp.RECT_SHAPES)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _close_reference_tables():
+    """Reading the reference's tables leaves its .npz archive open in this
+    process. A later test in the same worker that forks a process pool
+    (tests/test_parallel.py) would hand that one file offset to every
+    child, and their concurrent reads fail (BadZipFile). Close it when the
+    module is done; the next reader reopens it."""
+    yield
+    from cavif_tpu.av1 import tables
+
+    if tables._npz.cache_info().currsize:
+        tables._npz().close()
+        tables._npz.cache_clear()
+
+
 def _ref_consts(bw, bh, use_deltas):
     """The constant tables of cavif_tpu's _cost_body, built with its own
     numpy builders, under the port's key names."""
@@ -176,6 +191,8 @@ from cavif_tpu_torch.ops import block_search as bs
 from cavif_tpu_torch.ops import cuda_build
 from cavif_tpu_torch.ops import pass1_kernels as pk
 from cavif_tpu_torch.ops import search_kernels as sk
+from cavif_tpu_torch.ops import proto_kernels as prk
+from cavif_tpu_torch.tools import dir_ablation, dir_proto
 mk = torch.zeros(17, 8 * 16)
 v = torch.zeros(16)
 out = pk.dir_cost(torch.zeros(4, 17), torch.zeros(4, 16), mk, v, v, v, v, 1.0)
@@ -183,7 +200,11 @@ assert out.shape == (4, 8)
 planes = torch.zeros(1, 16, 16, dtype=torch.int32)
 kw = bs.search_inputs(planes, 8, 10, 100, 120, 30.0)
 assert sk.mode_cost(**kw).shape == (4, 13)
+args = (torch.zeros(4, 17), torch.zeros(4, 16), mk.bfloat16(), v, v, v, v, 1.0)
+assert prk.fused_dir_cost(*args, reduce="loop").shape == (4, 8)
+assert prk.dir_ablation(*args, variant="no_sign").shape == (4, 8)
 assert cuda_build._libs == {{}}
+assert prk.LAUNCHES == {{"fused_dir_cost": 0, "dir_ablation": 0}}
 assert pk.LAUNCHES == {{"dir_cost": 0, "nd_cost": 0}}
 assert sk.LAUNCHES == {{"mode_cost": 0}}
 print("ok")

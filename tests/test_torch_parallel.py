@@ -14,8 +14,11 @@ the reference's the two write the same bytes, since everything after pass 1
 is a verbatim copy."""
 
 import io
+import subprocess
+import sys
 import threading
 from dataclasses import replace
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -269,3 +272,33 @@ def test_encode_batch_processes_refuse_the_card(monkeypatch, device):
     enc = replace(cavif_tpu_torch.Encoder.new(), device=device)
     with pytest.raises(ValueError, match="CUDA"):
         encode_batch([img, img, img], enc, processes=True)
+
+
+def test_encode_batch_processes_after_a_parallel_torch_op():
+    """A forked pool started after the parent ran a parallel torch op
+    still encodes: the parent's OpenMP thread team does not survive fork,
+    so each child runs torch on one thread. Run in its own process, so
+    that a hang fails by timeout instead of stalling the suite."""
+    root = Path(__file__).resolve().parent.parent
+    code = f"""
+import sys
+sys.path.insert(0, {str(root)!r})
+from dataclasses import replace
+import numpy as np
+import torch
+import cavif_tpu_torch
+from cavif_tpu_torch.parallel import encode_batch
+torch.set_num_threads(4)
+x = torch.ones(1 << 22)
+for _ in range(5):
+    (x * 2.0).sum()
+rng = np.random.default_rng(0)
+img = (rng.integers(0, 256, (40, 48, 3)) // 4 + 90).astype(np.uint8)
+enc = replace(cavif_tpu_torch.Encoder.new().with_speed(10), device="cpu")
+res = encode_batch([img, img, img], enc, processes=True)
+assert all(r.encoded is not None for r in res), [r.error for r in res]
+print("ok")
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-2000:]
