@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -33,6 +34,31 @@ _NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: dict = {}
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def inputs(src: Path) -> list:
+    """`src` and every header under csrc/ that it includes with quotes,
+    directly or through another such header."""
+    seen, todo = [], [src]
+    while todo:
+        f = todo.pop()
+        if f in seen or not f.exists():
+            continue
+        seen.append(f)
+        todo += [_CSRC / h for h in _INCLUDE.findall(f.read_text())]
+    return seen
+
+
+def stale(name: str) -> bool:
+    """True unless lib<name>.so is newer than its source and every header
+    the source includes."""
+    so = _BUILD / f"lib{name}.so"
+    if not so.exists():
+        return True
+    built = so.stat().st_mtime
+    return any(f.stat().st_mtime > built
+               for f in inputs(_CSRC / SOURCES[name]))
 
 
 def _nvcc() -> str:
@@ -46,7 +72,8 @@ def _nvcc() -> str:
 def build(names=tuple(SOURCES)) -> dict:
     """Compile the named kernels' sources (one nvcc process each, all
     started together) into _build/lib<name>.so unless an up-to-date library
-    is there. Returns {name: (seconds, nvcc output)}; the output carries
+    is there (newer than the source and the csrc/ headers it includes).
+    Returns {name: (seconds, nvcc output)}; the output carries
     ptxas's register / shared-memory / spill report."""
     _BUILD.mkdir(exist_ok=True)
     procs, done = {}, {}
@@ -54,7 +81,7 @@ def build(names=tuple(SOURCES)) -> dict:
     for name in names:
         src = _CSRC / SOURCES[name]
         so = _BUILD / f"lib{name}.so"
-        if so.exists() and so.stat().st_mtime >= src.stat().st_mtime:
+        if not stale(name):
             done[name] = (0.0, "")
             continue
         tmp = so.with_suffix(f".so.{os.getpid()}")
@@ -96,11 +123,11 @@ def function(name: str, symbol: str, argtypes):
 
 
 def check(name, t, shape, dtype, device):
-    """Raise unless tensor `t` has this device, dtype, shape and is
-    contiguous (what a kernel takes)."""
+    """Raise unless tensor `t` has this device, dtype (or one of a tuple of
+    dtypes), shape and is contiguous (what a kernel takes)."""
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
         raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")

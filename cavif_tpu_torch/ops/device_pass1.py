@@ -40,7 +40,8 @@ import torch
 
 from ..av1.transforms import AC_BIAS, dct2_matrix, get_gain
 from . import colorspace
-from .pass1_kernels import _mm, dir_cost, nd_cost, nd_preds
+from .pass1_kernels import (_mm, dir_cost, nd_cost, nd_preds, pack_kt,
+                            pack_mk)
 
 # candidate order: 5 non-directional (elementwise predictors), then the
 # directional family (one MXU matmul): V, H, 6 diagonals at delta 0, then
@@ -333,7 +334,9 @@ class ShapeCost(torch.nn.Module):
     _cand_tables(use_deltas). Port of cavif_tpu's `_cost_body`.
 
     Shapes with max(bw, bh) <= 32 run the two kernels (nondirectional
-    family, then the directional family in the coefficient domain); the
+    family, then the directional family in the coefficient domain), with
+    their bf16 constants also laid out as the kernels' tiles (`kt_tiles`,
+    `mk_tiles`; None in f32 mode); the
     TX_64 family prices materialized residuals (its tail distortion term
     needs the full-area residual energy) in plain torch."""
 
@@ -366,6 +369,12 @@ class ShapeCost(torch.nn.Module):
             buf("cc", c["cc"])
         else:
             buf("mdir", c["mdir"], mm)
+        # the kernels' bf16 constants, laid out once in the order of their
+        # ring stages (ops/pass1_kernels.pack_kt, pack_mk)
+        tiles = self.fused and mm == torch.bfloat16
+        self.register_buffer("kt_tiles", pack_kt(self.kt) if tiles else None)
+        self.register_buffer(
+            "mk_tiles", pack_mk(self.mk, self.n2) if tiles else None)
 
     @classmethod
     def from_numpy(cls, consts: dict, *, bw: int, bh: int, depth: int,
@@ -415,7 +424,8 @@ class ShapeCost(torch.nn.Module):
         P = planes.shape[0]
         nb, nd, dr = self.kernel_inputs(planes, dc_q, ac_q, lam, tile_px)
         if self.fused:
-            costs = [nd_cost(**nd), dir_cost(**dr)]
+            costs = [nd_cost(**nd, kt_tiles=self.kt_tiles),
+                     dir_cost(**dr, mk_tiles=self.mk_tiles)]
         else:
             costs = self._materialized(nb["ext"], nd)
         cost = torch.cat(costs, -1).reshape(P, nb["nby"], nb["nbx"], -1)

@@ -15,11 +15,16 @@ Both kernels share one per-lane cost, in the |coef| domain:
   u = e * e + lam * (l + 2 * [l != 0]),  cost = sum over lanes of u.
 
 A wrapper takes the plain version for tensors on the CPU and launches its
-kernel for tensors on a CUDA device (or raises). The matmul inputs' rounding
-follows the dtype of the constant matrix: a bfloat16 `mk` / `kt` rounds the
-other operand to bfloat16 too (round to nearest even, as the TPU's default
+kernel for tensors on a CUDA device (or raises); on either it raises on
+inputs of the wrong shape or dtype. The matmul inputs' rounding follows the
+dtype of the constant matrix: a bfloat16 `mk` / `kt` rounds the other
+operand to bfloat16 too (round to nearest even, as the TPU's default
 precision did) and accumulates in f32; a float32 matrix keeps full f32
-inputs. The kernels take bfloat16 matrices only.
+inputs. The kernels take bfloat16 matrices only, and read them as tiles in
+the order of their shared-memory ring stages (`pack_kt`, `pack_mk`):
+ShapeCost builds the tiles once with its constants and passes them as
+`kt_tiles` / `mk_tiles`; a caller that passes none has them packed inside
+the call.
 
 The CUDA sources are compiled with nvcc into plain-C shared libraries under
 cavif_tpu_torch/_build/ on the first CUDA call, and loaded with ctypes
@@ -54,6 +59,87 @@ def _count(name: str) -> None:
         LAUNCHES[name] += 1
 
 
+# bf16 elements of zero padding per tile row (csrc/pass1_tc.cuh PAD)
+PAD = 8
+
+
+def nd_tile(n2: int) -> tuple:
+    """(LT, KC) of K2 for n2 lanes: output lanes per block and contraction
+    pixels per ring stage (csrc/pass1_nd_cost.cu config)."""
+    return min(n2, 256), min(n2, 32)
+
+
+def dir_tile(n2: int, E: int) -> tuple:
+    """(LT, Ep) of K1: lanes per block and E rounded up to the 16-deep
+    k-step (csrc/pass1_dir_cost.cu config)."""
+    return min(n2, 32), -(-E // 16) * 16
+
+
+def pack_kt(kt):
+    """KT (n2, n2) as K2's ring stages: (n2 / LT, n2 / KC, LT, KC + PAD)
+    bf16, tile [c, k, n, i] = KT[k * KC + i, c * LT + n], the PAD
+    columns zero."""
+    n2 = kt.shape[0]
+    LT, KC = nd_tile(n2)
+    t = kt.to(torch.bfloat16).reshape(n2 // KC, KC, n2 // LT, LT)
+    t = t.permute(2, 0, 3, 1)
+    return torch.nn.functional.pad(t, (0, PAD)).contiguous()
+
+
+def pack_mk(mk, n2: int):
+    """MK (E, cdir * n2) as K1's ring stages: (n2 / LT, cdir, LT, Ep + PAD)
+    bf16, tile [c, d, n, e] = MK[e, d * n2 + c * LT + n], the rows past E
+    zero."""
+    E, ncols = mk.shape
+    LT, Ep = dir_tile(n2, E)
+    t = mk.to(torch.bfloat16).reshape(E, ncols // n2, n2 // LT, LT)
+    t = t.permute(2, 1, 3, 0)
+    return torch.nn.functional.pad(t, (0, Ep + PAD - E)).contiguous()
+
+
+_MM_CPU = (torch.float32, torch.bfloat16)  # the plain versions take either
+
+
+def _check_inputs(specs, device) -> None:
+    """cuda_build.check on each (name, tensor, shape, dtype) of `specs`;
+    a tensor given as None is skipped."""
+    for nm, t, shape, dtype in specs:
+        if t is not None:
+            _check(nm, t, shape, dtype, device)
+
+
+def _launch(kernel, symbol, argtypes, device, *args) -> None:
+    """Call the C entry point `symbol` of `kernel` on the current stream of
+    `device` (its last argument), raise on a launch error, count one
+    launch."""
+    fn = cuda_build.function(kernel, symbol, argtypes)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
+    _count(kernel)
+
+
+def kernel_info(name: str, R: int, bw: int, bh: int, cdir: int = 0) -> dict:
+    """Launch geometry of kernel `name` ("dir_cost" or "nd_cost") on R rows
+    of a bw x bh block shape: main-grid blocks, registers per thread,
+    dynamic shared memory per block, blocks of the chunk-sum pass. Builds
+    and loads the kernel; needs a CUDA device."""
+    info = (ctypes.c_int * 4)()
+    if name == "nd_cost":
+        fn = cuda_build.function("nd_cost", "pass1_nd_cost_info",
+                                 [_I, _I, _I, _P])
+        err = fn(R, bw, bh, info)
+    else:
+        fn = cuda_build.function("dir_cost", "pass1_dir_cost_info",
+                                 [_I, _I, _I, _I, _P])
+        err = fn(R, 2 * (bw + bh) + 1, bw * bh, cdir, info)
+    if err != 0:
+        raise RuntimeError(f"{name} info failed: CUDA error {err}")
+    return dict(zip(("blocks", "registers", "smem_bytes", "sum_blocks"),
+                    info))
+
+
 def _mm(x, w):
     """x @ w with the input rounding that w's dtype names (see module
     docstring); f32 result."""
@@ -85,40 +171,44 @@ def dir_cost_ref(ext, bkt, mk, cc, inv, scale, bias, lam):
     return lane_cost(a, inv, scale, bias, lam).sum(-1)
 
 
-def dir_cost(ext, bkt, mk, cc, inv, scale, bias, lam):
+def dir_cost(ext, bkt, mk, cc, inv, scale, bias, lam, mk_tiles=None):
     """Directional-family costs (R, cdir): the plain version on the CPU,
-    the CUDA kernel on a CUDA device."""
-    if ext.device.type == "cpu":
-        return dir_cost_ref(ext, bkt, mk, cc, inv, scale, bias, lam)
+    the CUDA kernel on a CUDA device. `mk_tiles` is `pack_mk(mk, n2)`
+    (packed inside the call when not given; the plain version ignores
+    it)."""
     R, E = ext.shape
     n2 = bkt.shape[1]
+    if n2 < 16 or n2 & (n2 - 1):
+        raise ValueError(f"dir_cost: n2 {n2} is not a power of two >= 16")
     if mk.shape[1] % n2:
         raise ValueError("dir_cost: mk width is not a multiple of n2")
     cdir = mk.shape[1] // n2
-    if n2 < 16 or n2 & (n2 - 1):
-        raise ValueError(f"dir_cost: n2 {n2} is not a power of two >= 16")
-    dev, f32 = ext.device, torch.float32
-    _check("ext", ext, (R, E), f32, dev)
-    _check("bkt", bkt, (R, n2), f32, dev)
-    _check("mk", mk, (E, cdir * n2), torch.bfloat16, dev)
-    for nm, t in (("cc", cc), ("inv", inv), ("scale", scale),
-                  ("bias", bias)):
-        _check(nm, t, (n2,), f32, dev)
+    LT, Ep = dir_tile(n2, E)
+    dev, f32, bf16 = ext.device, torch.float32, torch.bfloat16
+    cpu = dev.type == "cpu"
+    _check_inputs((
+        ("ext", ext, (R, E), f32), ("bkt", bkt, (R, n2), f32),
+        ("mk", mk, (E, cdir * n2), _MM_CPU if cpu else bf16),
+        ("cc", cc, (n2,), f32), ("inv", inv, (n2,), f32),
+        ("scale", scale, (n2,), f32), ("bias", bias, (n2,), f32),
+        ("mk_tiles", mk_tiles, (n2 // LT, cdir, LT, Ep + PAD), bf16),
+    ), dev)
+    if cpu:
+        return dir_cost_ref(ext, bkt, mk, cc, inv, scale, bias, lam)
     out = torch.empty((R, cdir), dtype=f32, device=dev)
     if R == 0:
         return out
-    fn = cuda_build.function(
-        "dir_cost", "pass1_dir_cost",
-        [_P, _P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _P])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ext.data_ptr(), bkt.data_ptr(), mk.data_ptr(),
-                 cc.data_ptr(), inv.data_ptr(), scale.data_ptr(),
-                 bias.data_ptr(), float(lam), out.data_ptr(),
-                 R, E, n2, cdir, stream)
-    if err != 0:
-        raise RuntimeError(f"pass1_dir_cost launch failed: CUDA error {err}")
-    _count("dir_cost")
+    if mk_tiles is None:
+        mk_tiles = pack_mk(mk, n2)
+    nch = n2 // LT
+    part = (torch.empty((nch * cdir * R,), dtype=f32, device=dev)
+            if nch > 1 else None)
+    _launch("dir_cost", "pass1_dir_cost",
+            [_P, _P, _P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P],
+            dev, ext.data_ptr(), bkt.data_ptr(), mk_tiles.data_ptr(),
+            cc.data_ptr(), inv.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            float(lam), out.data_ptr(),
+            None if part is None else part.data_ptr(), R, E, n2, cdir)
     return out
 
 
@@ -167,41 +257,46 @@ def nd_cost_ref(above, left, sc, blocks, kt, whv, wwv, inv, scale, bias,
     return lane_cost(a, inv, scale, bias, lam).sum(-1)
 
 
-def nd_cost(above, left, sc, blocks, kt, whv, wwv, inv, scale, bias, lam):
+def nd_cost(above, left, sc, blocks, kt, whv, wwv, inv, scale, bias, lam,
+            kt_tiles=None):
     """Nondirectional-family costs (R, 5): the plain version on the CPU,
-    the CUDA kernel on a CUDA device."""
-    if above.device.type == "cpu":
-        return nd_cost_ref(above, left, sc, blocks, kt, whv, wwv, inv,
-                           scale, bias, lam)
+    the CUDA kernel on a CUDA device. `kt_tiles` is `pack_kt(kt)` (packed
+    inside the call when not given; the plain version ignores it)."""
     R, bw = above.shape
     bh = left.shape[1]
     n2 = bw * bh
     for v in (bw, bh):
         if v < 4 or v > 32 or v & (v - 1):
             raise ValueError(f"nd_cost: block side {v} not in 4..32")
-    dev, f32 = above.device, torch.float32
-    _check("above", above, (R, bw), f32, dev)
-    _check("left", left, (R, bh), f32, dev)
-    _check("sc", sc, (R, 2), f32, dev)
-    _check("blocks", blocks, (R, n2), f32, dev)
-    _check("kt", kt, (n2, n2), torch.bfloat16, dev)
-    for nm, t in (("whv", whv), ("wwv", wwv), ("inv", inv),
-                  ("scale", scale), ("bias", bias)):
-        _check(nm, t, (n2,), f32, dev)
+    LT, KC = nd_tile(n2)
+    dev, f32, bf16 = above.device, torch.float32, torch.bfloat16
+    cpu = dev.type == "cpu"
+    _check_inputs((
+        ("above", above, (R, bw), f32), ("left", left, (R, bh), f32),
+        ("sc", sc, (R, 2), f32), ("blocks", blocks, (R, n2), f32),
+        ("kt", kt, (n2, n2), _MM_CPU if cpu else bf16),
+        ("whv", whv, (n2,), f32), ("wwv", wwv, (n2,), f32),
+        ("inv", inv, (n2,), f32), ("scale", scale, (n2,), f32),
+        ("bias", bias, (n2,), f32),
+        ("kt_tiles", kt_tiles, (n2 // LT, n2 // KC, LT, KC + PAD), bf16),
+    ), dev)
+    if cpu:
+        return nd_cost_ref(above, left, sc, blocks, kt, whv, wwv, inv,
+                           scale, bias, lam)
     out = torch.empty((R, 5), dtype=f32, device=dev)
     if R == 0:
         return out
-    fn = cuda_build.function(
-        "nd_cost", "pass1_nd_cost",
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _P])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(above.data_ptr(), left.data_ptr(), sc.data_ptr(),
-                 blocks.data_ptr(), kt.data_ptr(), whv.data_ptr(),
-                 wwv.data_ptr(), inv.data_ptr(), scale.data_ptr(),
-                 bias.data_ptr(), float(lam), out.data_ptr(), R, bw, bh,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"pass1_nd_cost launch failed: CUDA error {err}")
-    _count("nd_cost")
+    if kt_tiles is None:
+        kt_tiles = pack_kt(kt)
+    nch = n2 // LT
+    part = (torch.empty((nch * R * 5,), dtype=f32, device=dev)
+            if nch > 1 else None)
+    _launch("nd_cost", "pass1_nd_cost",
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I,
+             _P],
+            dev, above.data_ptr(), left.data_ptr(), sc.data_ptr(),
+            blocks.data_ptr(), kt_tiles.data_ptr(), whv.data_ptr(),
+            wwv.data_ptr(), inv.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            float(lam), out.data_ptr(),
+            None if part is None else part.data_ptr(), R, bw, bh)
     return out
