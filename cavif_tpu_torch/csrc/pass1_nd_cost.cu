@@ -284,8 +284,8 @@ int launch(const Args& p, const Cfg& c, cudaStream_t stream) {
   err = cudaGetLastError();
   if (err != cudaSuccess || c.nch == 1) return static_cast<int>(err);
   const long long n = (long long)p.R * NP;
-  sum_chunks<<<(unsigned)((n + NT - 1) / NT), NT, 0, stream>>>(
-      p.part, p.out, n, n, c.nch, p.R, NP, 0);
+  sum_chunks<<<(unsigned)((n + NT - 1) / NT), NT, 0, stream>>>(p.part, p.out,
+                                                                n, c.nch);
   return static_cast<int>(cudaGetLastError());
 }
 

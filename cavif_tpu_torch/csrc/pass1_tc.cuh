@@ -1,7 +1,7 @@
-// Building blocks shared by the two tensor-core kernels of the device
-// pass 1 (pass1_nd_cost.cu, K2; pass1_dir_cost.cu, K1): the bf16 mma.sync
-// product fed by ldmatrix, the 16-byte cp.async ring, and the quantizer
-// lane cost with its rounding pinned.
+// Building blocks shared by the tensor-core kernels (pass1_nd_cost.cu, K2;
+// through dir_tc.cuh, pass1_dir_cost.cu, K1, and dir_cost_tc.cu, K4/K5):
+// the bf16 mma.sync product fed by ldmatrix, the 16-byte cp.async ring, and
+// the quantizer lane cost with its rounding pinned.
 //
 // Shared-memory tiles are bf16 rows padded by 8 elements (16 bytes): every
 // row length used here is then an odd number of 16-byte units, so the
@@ -101,33 +101,27 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Copy `bytes` (a multiple of 16) from device to shared memory with all
-// threads of the block, 16 bytes each per step (the caller commits the
+// nt threads of the block, 16 bytes each per step (the caller commits the
 // group).
 __device__ __forceinline__ void stage_copy(void* dst, const void* src,
-                                           int bytes, int tid) {
+                                           int bytes, int tid, int nt = NT) {
   char* d = static_cast<char*>(dst);
   const char* s = static_cast<const char*>(src);
-  for (int o = tid * 16; o < bytes; o += NT * 16) cp_async16(d + o, s + o);
+  for (int o = tid * 16; o < bytes; o += nt * 16) cp_async16(d + o, s + o);
 }
 
 // The second pass of a kernel whose blocks split a row's lanes into nch
-// chunks: s_i = sum_c part[c * stride + i] for i < n, added in chunk order
-// (deterministic, no atomics), written to out[i], or, when `transpose`, to
-// out[r * cols + col] for i = col * R + r.
+// chunks, each chunk's partials laid out as the output (n elements):
+// out[i] = sum_c part[c * n + i], added in chunk order (deterministic, no
+// atomics).
 __global__ void __launch_bounds__(NT)
 sum_chunks(const float* __restrict__ part, float* __restrict__ out,
-           long long n, long long stride, int nch, int R, int cols,
-           int transpose) {
+           long long n, int nch) {
   const long long i = blockIdx.x * (long long)NT + threadIdx.x;
   if (i >= n) return;
   float s = part[i];
-  for (int c = 1; c < nch; ++c) s = __fadd_rn(s, part[c * stride + i]);
-  if (transpose) {
-    const long long col = i / R, r = i - col * R;
-    out[r * cols + col] = s;
-  } else {
-    out[i] = s;
-  }
+  for (int c = 1; c < nch; ++c) s = __fadd_rn(s, part[c * n + i]);
+  out[i] = s;
 }
 
 }  // namespace pass1

@@ -69,10 +69,11 @@ def nd_tile(n2: int) -> tuple:
     return min(n2, 256), min(n2, 32)
 
 
-def dir_tile(n2: int, E: int) -> tuple:
-    """(LT, Ep) of K1: lanes per block and E rounded up to the 16-deep
-    k-step (csrc/pass1_dir_cost.cu config)."""
-    return min(n2, 32), -(-E // 16) * 16
+def dir_tile(n2: int, E: int, lt: int = 32) -> tuple:
+    """(LT, Ep) of K1 (or, with another `lt`, of K4/K5): lanes per block,
+    min(n2, lt), and E rounded up to the 16-deep k-step (csrc/dir_tc.cuh
+    dir_config)."""
+    return min(n2, lt), -(-E // 16) * 16
 
 
 def pack_kt(kt):
@@ -86,12 +87,12 @@ def pack_kt(kt):
     return torch.nn.functional.pad(t, (0, PAD)).contiguous()
 
 
-def pack_mk(mk, n2: int):
-    """MK (E, cdir * n2) as K1's ring stages: (n2 / LT, cdir, LT, Ep + PAD)
-    bf16, tile [c, d, n, e] = MK[e, d * n2 + c * LT + n], the rows past E
-    zero."""
+def pack_mk(mk, n2: int, lt: int = 32):
+    """MK (E, cdir * n2) as K1's ring stages (K4/K5's at lt lanes per
+    chunk): (n2 / LT, cdir, LT, Ep + PAD) bf16, tile [c, d, n, e] =
+    MK[e, d * n2 + c * LT + n], the rows past E zero."""
     E, ncols = mk.shape
-    LT, Ep = dir_tile(n2, E)
+    LT, Ep = dir_tile(n2, E, lt)
     t = mk.to(torch.bfloat16).reshape(E, ncols // n2, n2 // LT, LT)
     t = t.permute(2, 1, 3, 0)
     return torch.nn.functional.pad(t, (0, Ep + PAD - E)).contiguous()

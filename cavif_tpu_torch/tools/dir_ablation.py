@@ -5,7 +5,8 @@
 
 Times every variant (full, mm_only, no_quant, no_sign, red_bf16) at every
 tile on tier b's inputs (dir_proto.build), which splits the fused kernel's
-time between the product, the quantizer and the reduction. It runs on the
+time between the product, the quantizer and the reduction. The kernel is
+K1's design (csrc/dir_tc.cuh), so the split is K1's too. It runs on the
 card unless `--device cpu` is given; there the plain version stands in.
 """
 
@@ -22,10 +23,12 @@ from . import dir_proto
 
 def make(d: dict, variant: str, tile=pk.DEFAULT_TILE, device="cuda"):
     """(f, ext, bkt): f(ext, bkt) -> (R, C) costs of `variant` with bf16
-    products, and the harness dict d's inputs on `device`."""
+    products, and the harness dict d's inputs on `device`. MK's tiles are
+    packed once here, outside the calls."""
     kw = dir_proto.from_numpy(d, device)
     ext, bkt = kw.pop("ext"), kw.pop("bkt")
     kw["mk"] = kw["mk"].to(torch.bfloat16)
+    kw["mk_tiles"] = pk.pack_tiles(kw["mk"], d["n2"], tile)
 
     def f(e, b):
         return pk.dir_ablation(e, b, **kw, variant=variant, tile=tile)
@@ -49,7 +52,7 @@ def main(argv=None) -> int:
         for variant in pk.VARIANTS:
             f, ext, bkt = make(d, variant, tile, dev)
             t = bench(f, ext, bkt)
-            print(f"  tile={tile[0]}x{tile[1]:<3d} {variant:9s} "
+            print(f"  tile={tile[0]}x{tile[1]:<2d} {variant:9s} "
                   f"{t * 1e3:9.4f} ms")
     return 0
 

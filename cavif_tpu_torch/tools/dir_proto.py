@@ -8,8 +8,10 @@ a 1024x1024 three-plane frame, R = 3 (1024 / b)^2 rows of random 10-bit
 neighbours and blocks priced against the 56 directional candidates with
 angle deltas (E = 4b + 1 neighbours, n2 = b^2 lanes), then times the plain
 version with f32 products (`plain`, the accuracy yardstick) and K4 at every
-tile and reduce mode (`fused`, bf16 products), with each one's largest
-relative cost difference and share of argmin flips against the yardstick.
+tile and reduce mode (`fused`, bf16 products, MK's tiles packed once per
+tile), with each one's largest relative cost difference and share of argmin
+flips against the yardstick. A tile is (rows per thread block, lanes per
+chunk): proto_kernels.TILES.
 It runs on the card unless `--device cpu` is given; there the kernel's
 plain version stands in for it.
 """
@@ -89,8 +91,11 @@ def plain(d: dict, device="cuda"):
 
 def fused(d: dict, reduce: str = "matmul", tile=pk.DEFAULT_TILE,
           device="cuda"):
-    """f(ext, bkt) -> (R, C): K4 with bf16 products."""
+    """f(ext, bkt) -> (R, C): K4 with bf16 products. MK's tiles are packed
+    once here, outside the calls (as the TPU harness pads MK once outside
+    its jitted call)."""
     kw = _consts(d, device, torch.bfloat16)
+    kw["mk_tiles"] = pk.pack_tiles(kw["mk"], d["n2"], tile)
     return lambda ext, bkt: pk.fused_dir_cost(ext, bkt, **kw, reduce=reduce,
                                               tile=tile)
 
@@ -148,7 +153,7 @@ def main(argv=None) -> int:
         for mode in pk.REDUCE_MODES:
             tp, rp = bench(fused(d, mode, tile, dev), ext, bkt)
             rel, flips = compare(rp, rx)
-            print(f"  fused tile={tile[0]}x{tile[1]:<3d} {mode:6s} "
+            print(f"  fused tile={tile[0]}x{tile[1]:<2d} {mode:6s} "
                   f"{tp * 1e3:9.4f} ms  maxrel {rel:.2e}  "
                   f"argmin flips {flips:.4%}")
     return 0

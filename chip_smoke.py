@@ -30,16 +30,20 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    candidates' D R D^T alone, and the bound;
    then the prototype harnesses' kernels K4 (fused_dir_cost) and K5
    (dir_ablation) on the harness inputs of a 1024x1024 three-plane frame at
-   every tier b in {4, 8, 16, 32} (cavif_tpu_torch/tools/dir_proto.build):
-   K4 in both reduce modes at every tile, K5 in every variant at the
-   default tile, each against its plain version (bf16 inputs): argmin below
-   1e-3 of the rows and fewer than 1e-3 of the costs beyond rtol 2e-4 (for
-   mm_only and red_bf16: 2^-8 of the summed lane values' magnitudes); K4
-   on fewer rows gives the same rows bit for bit, K5 "full" equals K4
-   "matmul"; times beside the plain version, one torch.matmul of the bf16
-   product and the bound; K4 on K1's real inputs of the four square
-   shapes, timed beside K1; then one counted call of each harness per tier
-   (four launches each);
+   every tier b in {4, 8, 16, 32} (cavif_tpu_torch/tools/dir_proto.build),
+   with MK's tiles packed once outside the timed calls: K4 in both reduce
+   modes at every tile (rows per block, lanes per chunk), K5 in every
+   variant at the default tile, each against its plain version (bf16
+   inputs): argmin below 1e-3 of the rows and fewer than 1e-3 of the costs
+   beyond rtol 2e-4 (for mm_only and red_bf16: 2^-8 of the summed lane
+   values' magnitudes); K4 on fewer rows gives the same rows bit for bit,
+   K5 "full" equals K4 "matmul"; times beside the plain version, one
+   torch.matmul of the bf16 product and the bound; per (tier, tile) the
+   blocks, registers and shared memory per block and the host's time per
+   call; K5's split as shares of "full"; K4 on K1's real inputs of the
+   four square shapes, timed beside K1, where K4 "loop" at the default
+   tile must give K1's costs bit for bit (one kernel template); then one
+   counted call of each harness per tier (four launches each);
 4. the main path at full size: Encoder.new().with_quality(80).with_speed(4)
    on the 1024x1024 RGB test image, and on an RGBA variant, with every
    kernel's launch count set to 0 just before and read just after; the AVIF
@@ -214,11 +218,12 @@ def phase_build(cb):
     with open(os.path.join(OUT_DIR, "chip_smoke_build.txt"), "w") as f:
         for name, (_, log) in done.items():
             f.write(f"== {name}\n{log}\n")
-    for name, (_, log) in done.items():
+    for name, (done_s, log) in done.items():
         regs = [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln]
-        print(f"[build] {name}: " + " | ".join(regs[-2:]))
-    print(f"[build] {len(done)} kernels built in {secs:.2f} s")
+        print(f"[build] {name} done at {done_s:.2f} s: "
+              + " | ".join(regs[-2:]))
+    print(f"[build] {len(done)} kernel sources built in {secs:.2f} s")
     # load the libraries now, so the first timed launch pays no dlopen
     for name in done:
         cb.load(name)
@@ -239,13 +244,13 @@ def _shape_inputs(torch, dp, geo, planes, use_deltas):
 
 # FP32 CUDA-core instructions per element of each kernel's epilogue,
 # counted from its source (an |x| folds into its operand): K1
-# (pass1_dir_cost.cu) per (row, candidate, lane): cp / 32 + cc, bkt - .,
+# (dir_tc.cuh, FULL) per (row, candidate, lane): cp / 32 + cc, bkt - .,
 # lane_cost (11, pass1_tc.cuh), the lane sum; K2 (pass1_nd_cost.cu) per
 # (row, predictor, lane): lane_cost and the sum, plus per (row, pixel) the
 # five predictors, residuals and their bf16 rounding (the tensor-core
 # sources keep both epilogues' arithmetic, so the counts are unchanged);
-# K4/K5 (dir_cost_tc.cu lane_value) per (row, candidate, lane), the lane
-# sum included
+# K4/K5 (dir_tc.cuh lane_value, the same arithmetic as the first K4's) per
+# (row, candidate, lane), the lane sum included
 EPI_INSTR = {"dir_cost": 15, "nd_cost": 12, "nd_pixel": 47,
              "full": 15, "mm_only": 2, "no_quant": 5, "no_sign": 15,
              "red_bf16": 16}
@@ -543,9 +548,12 @@ def _hold(torch, what, got, ref, tol):
 def phase_proto(torch, prk, pk, dp, dir_proto, dir_ablation, inputs, peaks):
     """K4 and K5 on the harness inputs of a 1024x1024 three-plane frame at
     every tier (both reduce modes and every tile for K4, every variant at
-    the default tile for K5) and K4 on K1's real square-shape inputs, each
-    against its plain version with bf16-rounded inputs; then one counted
-    harness call of each per tier."""
+    the default tile for K5), each with MK's tiles packed once outside the
+    timed calls, against its plain version with bf16-rounded inputs; launch
+    geometry per (tier, tile); K5's split as shares of "full"; K4 on K1's
+    real square-shape inputs, where "loop" at the default tile must give
+    K1's costs bit for bit; then one counted harness call of each per
+    tier."""
     rows, data = [], {}
     for b in PROTO_TIERS:
         R = 3 * (SIZE // b) ** 2
@@ -553,6 +561,7 @@ def phase_proto(torch, prk, pk, dp, dir_proto, dir_ablation, inputs, peaks):
         kw = dir_proto.from_numpy(d, "cuda")
         kw["mk"] = kw["mk"].to(torch.bfloat16)
         E, n2, C = d["E"], d["n2"], d["C"]
+        tiles = {t: prk.pack_tiles(kw["mk"], n2, t) for t in prk.TILES}
         nbytes = 4.0 * R * (E + n2 + C) + 2.0 * E * C * n2 + 16.0 * n2
         flops = 2.0 * R * E * C * n2
         # library yardstick: the bf16 product alone (the port never calls
@@ -569,16 +578,17 @@ def phase_proto(torch, prk, pk, dp, dir_proto, dir_ablation, inputs, peaks):
               "matmul %.4f ms  bound %.4f ms (%s; bytes %.4f, tensor cores "
               "%.4f, CUDA cores %.4f)" % (b, R, E, C, n2, plain_ms, lib_ms,
                                           bound, by, *terms))
-        first = {}
+        first, host = {}, {}
         for reduce in prk.REDUCE_MODES:
             for tile in prk.TILES:
                 def run():
-                    return prk.fused_dir_cost(**kw, reduce=reduce, tile=tile)
+                    return prk.fused_dir_cost(**kw, reduce=reduce, tile=tile,
+                                              mk_tiles=tiles[tile])
                 got = run()
                 torch.cuda.synchronize()
                 what = f"k4 tier {b} {reduce} {tile[0]}x{tile[1]}"
                 mism, max_abs, over = _hold(torch, what, got, ref, tol)
-                ms = _cuda_ms(torch, run, 10)
+                ms, host[reduce, tile] = _cuda_ms(torch, run, 10, host=True)
                 first.setdefault(reduce, got)
                 rows.append(dict(
                     name="fused_dir_cost", tier=b, mode=reduce, tile=tile,
@@ -592,13 +602,26 @@ def phase_proto(torch, prk, pk, dp, dir_proto, dir_ablation, inputs, peaks):
             Rr = R - 37
             part = prk.fused_dir_cost(
                 **{**kw, "ext": kw["ext"][:Rr], "bkt": kw["bkt"][:Rr]},
-                reduce=reduce)
+                reduce=reduce, mk_tiles=tiles[prk.DEFAULT_TILE])
             if not torch.equal(part, first[reduce][:Rr]):
                 raise AssertionError(f"k4 tier {b} {reduce}: {Rr} rows "
                                      f"differ from the first rows of {R}")
+        for tile in prk.TILES:
+            geo = {m: prk.kernel_info(R, E, n2, C, tile, reduce=m)
+                   for m in prk.REDUCE_MODES}
+            g = geo["matmul"]
+            print("[proto] k4 tier %-2d %dx%-2d blocks %d (+%d chunk-sum), "
+                  "registers %d matmul / %d loop, %d / %d B shared memory "
+                  "per block; host %.4f / %.4f ms per call" % (
+                      b, tile[0], tile[1], g["blocks"], g["sum_blocks"],
+                      g["registers"], geo["loop"]["registers"],
+                      g["smem_bytes"], geo["loop"]["smem_bytes"],
+                      host["matmul", tile], host["loop", tile]))
+        split = {}
         for variant in prk.VARIANTS:
             def run():
-                return prk.dir_ablation(**kw, variant=variant)
+                return prk.dir_ablation(**kw, variant=variant,
+                                        mk_tiles=tiles[prk.DEFAULT_TILE])
             got = run()
             vref = prk.dir_ablation_ref(**kw, variant=variant)
             if variant in prk.BF16_REDUCE:
@@ -612,7 +635,7 @@ def phase_proto(torch, prk, pk, dp, dir_proto, dir_ablation, inputs, peaks):
             del vtol
             if variant == "full" and not torch.equal(got, first["matmul"]):
                 raise AssertionError(f"{what}: differs from K4 'matmul'")
-            ms = _cuda_ms(torch, run, 10)
+            ms = split[variant] = _cuda_ms(torch, run, 10)
             vplain_ms = _cuda_ms(
                 torch, lambda: prk.dir_ablation_ref(**kw, variant=variant), 3)
             vbound, vby, vterms = _bound(
@@ -627,30 +650,40 @@ def phase_proto(torch, prk, pk, dp, dir_proto, dir_ablation, inputs, peaks):
                   f"{max_abs:.6g}  beyond tol {over:.2e}  kernel {ms:.4f} "
                   f"ms  plain {vplain_ms:.4f} ms  bound {vbound:.4f} ms "
                   f"({vby}; CUDA cores {vterms[2]:.4f})")
-        del kw, ref, tol, first, got, vref
+        print(f"[proto] k5 tier {b} split, shares of full "
+              f"({split['full']:.4f} ms): " + ", ".join(
+                  f"{v} {split[v] / split['full']:.3f}"
+                  for v in ("mm_only", "no_quant", "no_sign")))
+        del kw, ref, tol, first, got, vref, tiles
         torch.cuda.empty_cache()
 
-    # K4 on K1's own inputs: the four square shapes of the encode
+    # K4 on K1's own inputs: the four square shapes of the encode; "loop"
+    # at the default tile with K1's tiles is K1's kernel instantiation
     for s in (4, 8, 16, 32):
-        dr = inputs[(s, s)][2]
+        sc, _, dr = inputs[(s, s)]
         ref = pk.dir_cost_ref(**dr)
         tol = COST_RTOL * ref.abs().clamp_min(1.0)
+        k1 = pk.dir_cost(**dr, mk_tiles=sc.mk_tiles)
         line = []
         for reduce in prk.REDUCE_MODES:
             def run():
-                return prk.fused_dir_cost(**dr, reduce=reduce)
+                return prk.fused_dir_cost(**dr, reduce=reduce,
+                                          mk_tiles=sc.mk_tiles)
             got = run()
             torch.cuda.synchronize()
             mism, max_abs, over = _hold(torch, f"k4 real {s}x{s} {reduce}",
                                         got, ref, tol)
+            if reduce == "loop" and not torch.equal(got, k1):
+                raise AssertionError(f"k4 real {s}x{s}: K4 'loop' at the "
+                                     "default tile differs from K1")
             line.append(f"K4 {reduce} {_cuda_ms(torch, run, 10):.4f} ms "
                         f"(argmin {mism:.2e}, max|d| {max_abs:.6g}, beyond "
                         f"tol {over:.2e})")
-        sc = inputs[(s, s)][0]
         k1_ms = _cuda_ms(
             torch, lambda: pk.dir_cost(**dr, mk_tiles=sc.mk_tiles), 10)
         print(f"[k4] real {s}x{s} R={dr['ext'].shape[0]} "
-              f"cdir={ref.shape[1]}: {'; '.join(line)}; K1 {k1_ms:.4f} ms")
+              f"cdir={ref.shape[1]}: {'; '.join(line)}; K1 {k1_ms:.4f} ms; "
+              "K4 loop == K1 bit for bit")
     torch.cuda.synchronize()
 
     # the counted run: one call of each harness per tier, at its defaults

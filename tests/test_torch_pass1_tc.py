@@ -100,6 +100,23 @@ def test_tile_element_order(bw, bh):
         assert mkt[n // LT, c, n % LT, e] == mk16[e, c * n2 + n]
 
 
+@pytest.mark.parametrize("bw,bh", [(4, 4), (8, 8), (16, 8), (32, 32)])
+def test_pack_mk_lanes_per_chunk(bw, bh):
+    """K4/K5's chunks of lt = 16 lanes: MK[e, c * n2 + n] at
+    [n // 16, c, n % 16, e]; the default lt stays K1's 32."""
+    n2, E = bw * bh, 2 * (bw + bh) + 1
+    rng = np.random.default_rng(bw * bh)
+    mk = torch.from_numpy(rng.standard_normal((E, 3 * n2)).astype(np.float32))
+    t16 = pk.pack_mk(mk, n2, lt=16)
+    assert t16.shape == (n2 // 16, 3, 16, -(-E // 16) * 16 + pk.PAD)
+    mk16 = mk.bfloat16()
+    for e, c, n in zip(rng.integers(0, E, 20), rng.integers(0, 3, 20),
+                       rng.integers(0, n2, 20)):
+        assert t16[n // 16, c, n % 16, e] == mk16[e, c * n2 + n]
+    assert torch.equal(pk.pack_mk(mk, n2), pk.pack_mk(mk, n2, lt=32))
+    assert pk.dir_tile(n2, E) == pk.dir_tile(n2, E, 32)
+
+
 @pytest.mark.parametrize("use_deltas", [False, True])
 @pytest.mark.parametrize("bw,bh", [(4, 4), (8, 4), (8, 8), (16, 8),
                                    (16, 16)])
@@ -217,16 +234,17 @@ def test_shape_cost_forward_passes_its_tiles(monkeypatch):
 
 
 def test_build_inputs_follow_quoted_includes():
-    """The two pass-1 sources depend on their shared header; K3's and
-    K4/K5's sources on nothing else of csrc/."""
+    """K2's source depends on the shared header; K1's and K4/K5's on their
+    kernel template, which includes it; K3's on nothing else of csrc/."""
     csrc = cuda_build._CSRC
-    for name in ("dir_cost", "nd_cost"):
-        got = cuda_build.inputs(csrc / cuda_build.SOURCES[name])
-        assert got == [csrc / cuda_build.SOURCES[name],
-                       csrc / "pass1_tc.cuh"]
-    for name in ("mode_cost", "dir_cost_tc"):
+    got = cuda_build.inputs(csrc / cuda_build.SOURCES["nd_cost"])
+    assert got == [csrc / "pass1_nd_cost.cu", csrc / "pass1_tc.cuh"]
+    for name in ("dir_cost", "dir_cost_tc"):
         src = csrc / cuda_build.SOURCES[name]
-        assert cuda_build.inputs(src) == [src]
+        assert cuda_build.inputs(src) == [src, csrc / "dir_tc.cuh",
+                                          csrc / "pass1_tc.cuh"]
+    src = csrc / cuda_build.SOURCES["mode_cost"]
+    assert cuda_build.inputs(src) == [src]
 
 
 def test_stale_when_an_included_header_is_newer(tmp_path, monkeypatch):

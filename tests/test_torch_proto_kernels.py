@@ -5,7 +5,9 @@ kernels run here in the Pallas interpreter.
 
 On the CPU the wrappers run their plain versions and launch nothing; the
 CUDA kernel itself is held against those plain versions on the card by
-chip_smoke.py.
+chip_smoke.py. What surrounds the kernel is held here: MK's ring-stage
+tiles at every tile, the wrappers' checks of `mk_tiles` and of the E the
+kernel is built for, and the harness closures packing the tiles once.
 
 Tolerances. The directional coefficient is the difference of two large
 products (ROADMAP C, coefficient cancellation), so summation order can move
@@ -198,10 +200,10 @@ def test_wrappers_take_plain_version_on_cpu(case):
     kw = _kwargs(_ref_build(8))
     pk.reset_launches()
     if kind == "fused":
-        got = pk.fused_dir_cost(**kw, reduce=arg, tile=(64, 128))
+        got = pk.fused_dir_cost(**kw, reduce=arg, tile=(64, 32))
         want = pk.fused_dir_cost_ref(**kw)
     else:
-        got = pk.dir_ablation(**kw, variant=arg, tile=[128, 64])
+        got = pk.dir_ablation(**kw, variant=arg, tile=[128, 16])
         want = pk.dir_ablation_ref(**kw, variant=arg)
     assert pk.LAUNCHES == {"fused_dir_cost": 0, "dir_ablation": 0}
     assert torch.equal(got, want)
@@ -253,3 +255,99 @@ def test_harness_main_on_cpu(mod, capsys):
         # on the CPU the kernel is its plain version: bf16 against f32
         # products, no pick differs at this size
         assert "argmin flips 0.0000%" in out
+
+
+def _unpack(tiles, E):
+    """The (E, C * n2) MK that pack_tiles laid out."""
+    nch, C, LT, _ = tiles.shape
+    return tiles[..., :E].permute(3, 1, 0, 2).reshape(E, C * nch * LT)
+
+
+@pytest.mark.parametrize("tile", pk.TILES)
+@pytest.mark.parametrize("b", TIERS)
+def test_tiles_unpack_to_mk(b, tile):
+    """The ring-stage tiles at every tile and tier hold MK bit for bit:
+    (n2 / LT, C, LT, Ep + 8), LT = min(n2, lanes), the padding zero."""
+    kw = _kwargs(_ref_build(b))
+    mk, n2 = kw["mk"], kw["bkt"].shape[1]
+    E = mk.shape[0]
+    tiles = pk.pack_tiles(mk, n2, tile)
+    LT = min(n2, tile[1])
+    Ep = -(-E // 16) * 16
+    assert tiles.shape == (n2 // LT, 56, LT, Ep + 8)
+    assert tiles.dtype == torch.bfloat16 and tiles.is_contiguous()
+    assert torch.equal(_unpack(tiles, E).view(torch.int16),
+                       mk.view(torch.int16))
+    assert not bool(tiles[..., E:].any())
+    if tile[1] == 32:  # K1's lanes: K1's own layout
+        assert torch.equal(tiles, pass1_kernels.pack_mk(mk, n2))
+
+
+def _call(kind, kw, **extra):
+    if kind == "fused":
+        return pk.fused_dir_cost(**kw, **extra)
+    return pk.dir_ablation(**kw, variant="no_sign", **extra)
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "other tile"])
+@pytest.mark.parametrize("kind", ["fused", "ablation"])
+def test_bad_tiles_raise_on_cpu(kind, bad):
+    kw = _kwargs(_ref_build(8))
+    tiles = pk.pack_tiles(kw["mk"], 64)
+    tiles = {"shape": tiles[:, :-1], "dtype": tiles.float(),
+             "other tile": pk.pack_tiles(kw["mk"], 64, (128, 16))}[bad]
+    pk.reset_launches()
+    with pytest.raises(ValueError):
+        _call(kind, kw, mk_tiles=tiles)
+    assert pk.LAUNCHES == {"fused_dir_cost": 0, "dir_ablation": 0}
+
+
+@pytest.mark.parametrize("tile", pk.TILES)
+@pytest.mark.parametrize("kind", ["fused", "ablation"])
+def test_good_tiles_leave_plain_result(kind, tile):
+    kw = _kwargs(_ref_build(8))
+    tiles = pk.pack_tiles(kw["mk"], 64, tile)
+    pk.reset_launches()
+    got = _call(kind, kw, tile=tile, mk_tiles=tiles)
+    assert pk.LAUNCHES == {"fused_dir_cost": 0, "dir_ablation": 0}
+    assert torch.equal(got, _call(kind, kw, tile=tile))
+
+
+@pytest.mark.parametrize("harness", ["fused", "make"])
+def test_harness_packs_once(harness, monkeypatch):
+    """The closures pack MK's tiles once, outside the calls they time."""
+    packs = []
+    real = pass1_kernels.pack_mk
+
+    def counted(*a, **k):
+        packs.append(k.get("lt"))
+        return real(*a, **k)
+
+    monkeypatch.setattr(pass1_kernels, "pack_mk", counted)
+    d = _ref_build(8)
+    kw = dir_proto.from_numpy(d, "cpu")
+    if harness == "fused":
+        f = dir_proto.fused(d, "loop", (64, 32), device="cpu")
+    else:
+        f = dir_ablation.make(d, "full", (128, 16), device="cpu")[0]
+    first = f(kw["ext"], kw["bkt"])
+    assert torch.equal(f(kw["ext"], kw["bkt"]), first)
+    assert packs == [32 if harness == "fused" else 16]
+
+
+@pytest.mark.parametrize("E", [16, 49, 64, 81, 128, 145, 256])
+@pytest.mark.parametrize("kind", ["fused", "ablation"])
+def test_unsupported_e_raises(kind, E):
+    """The kernel is built for k-steps ceil(E / 16) in {2, 3, 5, 9} only:
+    any other E raises before a launch, on the CPU too."""
+    rng = np.random.default_rng(E)
+    n2, C = 16, 3
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    kw = dict(ext=f(8, E), bkt=f(8, n2), mk=f(E, C * n2).bfloat16(),
+              cc=f(n2), inv=f(n2), scale=f(n2), bias=f(n2), lam=1.0)
+    pk.reset_launches()
+    with pytest.raises(ValueError, match="E"):
+        _call(kind, kw)
+    assert pk.LAUNCHES == {"fused_dir_cost": 0, "dir_ablation": 0}
+    kw.update(ext=f(8, 33), mk=f(33, C * n2).bfloat16())
+    assert _call(kind, kw).shape == (8, C)
