@@ -1,7 +1,8 @@
 // Building blocks shared by the tensor-core kernels (pass1_nd_cost.cu, K2;
-// through dir_tc.cuh, pass1_dir_cost.cu, K1, and dir_cost_tc.cu, K4/K5):
-// the bf16 mma.sync product fed by ldmatrix, the 16-byte cp.async ring, and
-// the quantizer lane cost with its rounding pinned.
+// through dir_tc.cuh, pass1_dir_cost.cu, K1, and dir_cost_tc.cu, K4/K5;
+// mode_search_cost.cu, K3): the bf16 and f16 mma.sync products fed by
+// ldmatrix (which moves 16-bit elements of either type), the 16-byte
+// cp.async ring, and the quantizer lane cost with its rounding pinned.
 //
 // Shared-memory tiles are bf16 rows padded by 8 elements (16 bytes): every
 // row length used here is then an odd number of 16-byte units, so the
@@ -13,6 +14,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -44,10 +46,10 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Four 8x8 bf16 matrices from shared memory; lane t gives the address of
-// row (t & 7) of matrix (t >> 3).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const __nv_bfloat16* p) {
+// Four 8x8 matrices of 16-bit elements (bf16 or f16) from shared memory;
+// lane t gives the address of row (t & 7) of matrix (t >> 3).
+template <class T>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const T* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -64,12 +66,22 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c += a (16x16, row) * b (16x8, col), f16 in, f32 accumulate
+__device__ __forceinline__ void mma_f16(float (&c)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // A fragment of the 16-row slab at `rows` (row stride ld elements), k
 // columns k0..k0+15: matrices (rows 0-7, k 0-7), (8-15, 0-7), (0-7, 8-15),
 // (8-15, 8-15) are a0..a3 of mma.m16n8k16.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4],
-                                       const __nv_bfloat16* rows, int ld,
-                                       int k0, int lane) {
+template <class T>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const T* rows,
+                                       int ld, int k0, int lane) {
   const int r = (lane & 7) + ((lane >> 3) & 1) * 8;
   ldmatrix_x4(a, rows + r * ld + k0 + (lane >> 4) * 8);
 }
@@ -77,9 +89,9 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4],
 // B fragments of two neighbouring 8-column tiles from an [n][k] tile (row
 // stride ld elements), columns n0..n0+15, k0..k0+15: b[0], b[1] of the
 // first tile, b[2], b[3] of the second.
-__device__ __forceinline__ void load_b2(uint32_t (&b)[4],
-                                        const __nv_bfloat16* tile, int ld,
-                                        int n0, int k0, int lane) {
+template <class T>
+__device__ __forceinline__ void load_b2(uint32_t (&b)[4], const T* tile,
+                                        int ld, int n0, int k0, int lane) {
   const int m = lane >> 3;
   ldmatrix_x4(b, tile + (n0 + (m >> 1) * 8 + (lane & 7)) * ld + k0 +
                      (m & 1) * 8);

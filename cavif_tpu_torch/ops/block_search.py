@@ -15,6 +15,8 @@ model, DP and return formats, numpy in and numpy out, plus `device=`.
 or "plain" (the plain version on any device, for comparisons). The TPU's
 n <= 16 limit on its Pallas backend was a VMEM fact and is not carried
 over: on the card every tier runs K3. Meshes are not supported yet.
+Planes are 8 or 10 bits deep at most (K3 takes pixels in [0, 1023]); the
+entry points refuse deeper ones on every backend.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from .search_kernels import (  # noqa: F401
 )
 
 BACKENDS = ("auto", "plain")
+MAX_BIT_DEPTH = 10  # K3's residuals are exact in f16 for pixels <= 1023
 OVH_BLOCK, OVH_SPLIT = 15.0, 2.0  # DP rate proxies, in lambda units
 
 
@@ -111,7 +114,11 @@ def search_inputs(planes, n: int, bit_depth: int, dc_q, ac_q, lam) -> dict:
     """K3's keyword arguments for every aligned n x n block of planes
     (N, H, W) int32 on one device: the per-block tensors of
     pallas_search._prep, flattened to NB = N * nby * nbx rows, the block
-    size's constant tables, and the quantizer of dc_q / ac_q at lam."""
+    size's constant tables (with K3's split D, `tiles`), and the quantizer
+    of dc_q / ac_q at lam. Raises ValueError above MAX_BIT_DEPTH."""
+    if bit_depth > MAX_BIT_DEPTH:
+        raise ValueError(f"bit_depth {bit_depth}: the block search takes "
+                         f"planes of at most {MAX_BIT_DEPTH} bits")
     N, H, W = planes.shape
     nby, nbx = H // n, W // n
     NB = N * nby * nbx
@@ -135,6 +142,7 @@ def search_inputs(planes, n: int, bit_depth: int, dc_q, ac_q, lam) -> dict:
         taps=torch.from_numpy(c["taps"]).to(dev),
         smw=torch.from_numpy(c["smw"]).to(dev),
         dct=torch.from_numpy(c["dct"]).to(dev),
+        tiles=torch.from_numpy(c["tiles"]).to(dev),
         ac=ac, dc=dc, lam=_f32(lam),
     )
 
@@ -203,7 +211,8 @@ def plane_partition_search(
     backend: str = "auto",
 ):
     """Run the whole-plane multi-tier search + partition DP. planes:
-    (N, H, W) int32 with H, W multiples of max_n. Returns
+    (N, H, W) int32 with H, W multiples of max_n, bit_depth at most 10
+    (ValueError above). Returns
     ({n: (modes, costs)}, {n: codes}) as host numpy arrays."""
     x = _setup(planes, backend, device, mesh)
     with torch.inference_mode():
@@ -227,7 +236,8 @@ def plane_mode_search_costs(
 ):
     """Best intra mode (13 candidates) and its RD cost for every aligned
     n x n block of a batch of planes: (modes int8 (N, H/n, W/n), costs f32
-    (N, H/n, W/n)). planes: (N, H, W) with H, W multiples of n."""
+    (N, H/n, W/n)). planes: (N, H, W) with H, W multiples of n, bit_depth
+    at most 10 (ValueError above)."""
     x = _setup(planes, backend, device)
     with torch.inference_mode():
         modes, costs = _search(x, n, bit_depth, dc_q, ac_q, lam, backend)
@@ -245,7 +255,8 @@ def plane_mode_search(
     device: str = "cuda",
 ):
     """Best intra mode (13 candidates) for every aligned n x n block of a
-    batch of planes. planes: (N, H, W) with H, W multiples of n. Returns
-    (N, H/n, W/n) int8 indices into CAND_MODES."""
+    batch of planes. planes: (N, H, W) with H, W multiples of n, bit_depth
+    at most 10 (ValueError above). Returns (N, H/n, W/n) int8 indices into
+    CAND_MODES."""
     return plane_mode_search_costs(planes, dc_q, ac_q, lam, bit_depth, n,
                                    backend, device)[0]

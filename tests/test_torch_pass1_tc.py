@@ -234,8 +234,8 @@ def test_shape_cost_forward_passes_its_tiles(monkeypatch):
 
 
 def test_build_inputs_follow_quoted_includes():
-    """K2's source depends on the shared header; K1's and K4/K5's on their
-    kernel template, which includes it; K3's on nothing else of csrc/."""
+    """K2's and K3's sources depend on the shared header; K1's and K4/K5's
+    on their kernel template, which includes it."""
     csrc = cuda_build._CSRC
     got = cuda_build.inputs(csrc / cuda_build.SOURCES["nd_cost"])
     assert got == [csrc / "pass1_nd_cost.cu", csrc / "pass1_tc.cuh"]
@@ -244,7 +244,7 @@ def test_build_inputs_follow_quoted_includes():
         assert cuda_build.inputs(src) == [src, csrc / "dir_tc.cuh",
                                           csrc / "pass1_tc.cuh"]
     src = csrc / cuda_build.SOURCES["mode_cost"]
-    assert cuda_build.inputs(src) == [src]
+    assert cuda_build.inputs(src) == [src, csrc / "pass1_tc.cuh"]
 
 
 def test_stale_when_an_included_header_is_newer(tmp_path, monkeypatch):
