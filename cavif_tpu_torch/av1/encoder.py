@@ -2032,6 +2032,30 @@ class FrameEncoder:
                 tiles = None
             else:
                 tiles = self._encode_tiles(tcl, trl)
+        # Device filter chain: when the frame's pass-1 already runs on
+        # the card, the whole decoder-simulation filter stack (deblock
+        # level search+apply, CDEF search+apply, LR solve statistics)
+        # runs as one device program + one small follow-up, bit-identical
+        # to the host C++ chain below (ops/device_filters.py;
+        # CAVIF_TPU_DEVICE_FILTERS=0/1 overrides). The host chain runs
+        # instead only when the replay ops are unavailable (record
+        # overflow); a device failure raises.
+        devres = None
+        if self._want_filters:
+            from ..ops import device_filters as devf
+
+            if devf.device_filters_enabled(self):
+                with span("device_filters"):
+                    devres = devf.run_filter_chain(self)
+        if devres is not None:
+            lf_levels, cdef_y, cdef_uv, cdef_damping, lr_on = devres
+            lr_types = ()
+            if lr_on:
+                lr_types = tuple(self._lr_types[: self.num_planes])
+            return self._assemble_frame(
+                tiles, tcl, trl, defer, lf_levels, cdef_y, cdef_uv,
+                cdef_damping, lr_types,
+            )
         # Deblocking is output-only for still pictures (intra prediction
         # reads unfiltered recon), so it's a free quality lever: simulate
         # the decoder's filter on the exact recon and pick the uniform

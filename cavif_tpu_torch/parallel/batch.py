@@ -400,8 +400,10 @@ def encode_batch_sharded(
         else:
             planes = colorspace.alpha_plane_host(alpha, depth=depth)
             src8 = alpha
+        # the frame keeps its device (cfg.device: the card or "cpu"), so
+        # the filter chain's gate sees where pass 1 ran; the injected
+        # grids stand in for the frame's own pass-1 call
         fe = FrameEncoder(planes, cfg, src8=src8)
-        fe._device_search = "inject"
         gr = grids_by[(i, kind)]
         fe._dev_state = (gr, fe._dev_part_dict(gr))
         return fe.encode()

@@ -59,7 +59,18 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    pre-filter reconstruction (FrameEncoder._recon_full) at least the
    host's minus 0.1 dB; the whole
    device pass 1 on a 256x256 input agrees with the CPU plain path;
-5. the block-search path at full size: plane_partition_search (tiers
+5. the in-loop filter chain (ops/device_filters.py, plain PyTorch on the
+   card): the attachment probe and its engage flags; deblock_device,
+   cdef_device, lr_wiener_plane_device (luma and one chroma plane) and
+   lr_sgr_plane_device on the card, each bit-equal to the port's native
+   C++ on the same encoder state of the 1024x1024 frame, timed by the host
+   clock and CUDA events beside the C++, with its CUDA kernels per call
+   (torch.profiler); one run_filter_chain call (decisions equal the host
+   chain's, kernels per call, device busy share); the RGB and RGBA encodes
+   with the chain auto-engaged: the device_filters span ran, the host
+   filter spans did not, the AVIF bytes equal the chain-off
+   (CAVIF_TPU_DEVICE_FILTERS=0) encodes', and the traced split of both;
+6. the block-search path at full size: plane_partition_search (tiers
    8-32: three K3 launches) and plane_mode_search at n = 16 (one), each
    with K3's count set to 0 just before and read just after; the same
    partition search with backend="plain" (the plain version on the card):
@@ -67,13 +78,15 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    than 1e-3 of the blocks, fewer than 1e-3 of the min costs lie beyond
    rtol 2e-4, and codes differ on fewer than 1e-3 of the entries; at
    256x256 the card's search holds the same rule against device="cpu";
-6. the batched path: encode_batch_sharded on four 1024x1024 RGB images and
+7. the batched path: encode_batch_sharded on four 1024x1024 RGB images and
    one RGBA image (host stealing off), K1/K2 launch counts (one launch
    per block shape and sub-batch, not per image), every AVIF parsed, the
    four colour streams inside the host envelope as in phase 4, wall time
    and MP/s, beside the same images encoded one after another and through
-   encode_batch (the hybrid card + host scheduler);
-7. one JSON line listing the kernels, the card line, and last the JSON
+   encode_batch (the hybrid card + host scheduler); the filter chain runs
+   once per stream and every AVIF equals the same batch's with the chain
+   off;
+8. one JSON line listing the kernels, the card line, and last the JSON
    result line.
 
 Without a CUDA card, or outside a checkout of the repository, it exits
@@ -450,6 +463,249 @@ def phase_quality(img):
     if cb > 1.05 * hb or cp < hp - 0.1:
         raise AssertionError("card encode outside the host envelope")
     return dict(card_bytes=cb, card_psnr=cp, host_bytes=hb, host_psnr=hp)
+
+
+def _host_ms(fn, reps: int = 3):
+    """(result of the last call, median host-clock ms per call) after one
+    warm-up call; fn ends in a host result, so the clock covers its device
+    work and transfers."""
+    out = fn()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return out, sorted(ts)[len(ts) // 2]
+
+
+def _profile(torch, fn):
+    """(CUDA kernels, memory copies/sets, summed device ms) of one call of
+    fn under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = copies = 0
+    dev_us = 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.name.startswith(("Memcpy", "Memset")):
+            copies += 1
+        else:
+            kernels += 1
+        dev_us += e.time_range.elapsed_us()
+    return kernels, copies, dev_us / 1e3
+
+
+def _trace_split(enc, x, rgba):
+    """(AVIF bytes, wall s, span totals) of one traced encode; the spans
+    of the colour and alpha stream threads are summed across threads."""
+    from cavif_tpu_torch.utils import trace
+
+    trace.set_enabled(True)
+    trace.set_accumulate(True)
+    try:
+        t0 = time.perf_counter()
+        res = (enc.encode_rgba if rgba else enc.encode_rgb)(x)
+        wall = time.perf_counter() - t0
+        stages = {k: v for k, v in trace.ACCUM.items()
+                  if not k.startswith("n_")}
+    finally:
+        trace.set_accumulate(False)
+        trace.set_enabled(False)
+    return res.avif_file, wall, stages
+
+
+def phase_filters(torch, img):
+    """The in-loop filter chain on the card. The attachment probe and
+    its engage flags; each stage's entry point (deblock_device,
+    cdef_device, lr_wiener_plane_device, lr_sgr_plane_device) on the card,
+    held exactly against the port's native C++ on the same encoder state,
+    timed beside it; the CUDA kernels of one run_filter_chain call
+    (torch.profiler); the RGB and RGBA encodes with the chain
+    auto-engaged, whose AVIF bytes must equal the chain-off
+    (CAVIF_TPU_DEVICE_FILTERS=0) encodes'."""
+    from cavif_tpu_torch import Encoder, native
+    from cavif_tpu_torch.av1.config import AV1Config
+    from cavif_tpu_torch.av1.encoder import FrameEncoder
+    from cavif_tpu_torch.av1.speed import SpeedTweaks
+    from cavif_tpu_torch.ops import attachment, colorspace
+    from cavif_tpu_torch.ops import device_filters as df
+    from cavif_tpu_torch.ops.quality import quality_to_quantizer
+
+    os.environ.pop("CAVIF_TPU_DEVICE_FILTERS", None)
+    p = attachment.probe()
+    p2, filt = attachment.engage_device_pass2(), attachment.engage_device_filters()
+    print(f"[filters] probe {json.dumps(p)}; engage_device_pass2 {p2}, "
+          f"engage_device_filters {filt}")
+    if not filt:
+        raise AssertionError("the probe does not engage the filter chain")
+
+    # the encoder state: the bench frame encoded with the host chain
+    h, w = img.shape[:2]
+    q = quality_to_quantizer(float(QUALITY))
+    planes = colorspace.rgb_to_ycbcr_host(img, depth=10)
+    cfg = AV1Config(width=w, height=h, bit_depth=10, quantizer=q,
+                    tweaks=SpeedTweaks.from_preset(SPEED, q),
+                    chroma_sampling="444", full_range=True,
+                    matrix_coefficients=6, threads=None, tune="psnr")
+    os.environ["CAVIF_TPU_DEVICE_FILTERS"] = "0"
+    try:
+        fe = FrameEncoder(planes, cfg, src8=img)
+        fe.encode()
+    finally:
+        del os.environ["CAVIF_TPU_DEVICE_FILTERS"]
+    host_levels = tuple(fe._lf_levels)
+    host_units = dict(fe._lr_units or {})
+    rec, src, maps = fe._recon_full(), fe._src_stack(), fe._filter_maps
+    geo = dict(bit_depth=fe.bit_depth, mi_rows=fe.mi_rows,
+               mi_cols=fe.mi_cols, vis=(w, h))
+    sub = 1 if SPEED <= 2 else (2 if SPEED <= 3 else 4)
+    nthr = os.cpu_count() or 1
+    stages = {}
+
+    def stage(name, host_fn, card_fn, same):
+        host_out, host_ms = _host_ms(host_fn)
+        card_out, card_ms = _host_ms(card_fn)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            card_fn()
+        end.record()
+        end.synchronize()
+        ev_ms = start.elapsed_time(end) / 3
+        kernels, copies, dev_ms = _profile(torch, card_fn)
+        if not same(host_out, card_out):
+            raise AssertionError(f"[filters] {name}: card differs from the "
+                                 "host C++")
+        stages[name] = dict(card_ms=card_ms, card_event_ms=ev_ms,
+                            host_cpp_ms=host_ms, kernels=kernels,
+                            copies=copies, device_ms=dev_ms)
+        print(f"[filters] {name:<7} bit-equal to the host C++; card "
+              f"{card_ms:.3f} ms host clock, {ev_ms:.3f} ms CUDA events "
+              f"(upload and fetch included), {kernels} kernels + {copies} "
+              f"copies busy {dev_ms:.3f} ms; host C++ {host_ms:.3f} ms")
+        return host_out, card_out
+
+    def host_deblock():
+        levels = fe._deblock_apply()
+        return levels, fe._filtered_stack
+
+    (levels, dstack), _ = stage(
+        "deblock", host_deblock,
+        lambda: df.deblock_device(rec, src, maps, fe._lf_hint(),
+                                  row_sub=sub, **geo),
+        lambda a, b: tuple(a[0]) == b[0] and np.array_equal(a[1], b[1]))
+    pre = dstack.copy()
+    pri = fe.CDEF_PRI if SPEED <= 3 else fe.CDEF_PRI_FAST
+
+    def host_cdef():
+        fe._filtered_stack = pre
+        y, uv, damping = fe._cdef_apply()
+        return y, uv, damping, fe._filtered_stack
+
+    uncode = lambda s: 4 if s == 3 else s
+
+    def same_cdef(a, b):
+        y, uv, _d, stack = a
+        hy = (y[0][0], uncode(y[0][1])) if y else (0, 0)
+        huv = (uv[0][0], uncode(uv[0][1])) if uv else (0, 0)
+        return b[0] == hy + huv and np.array_equal(stack, b[1])
+
+    damping = min(6, 3 + (fe.base_q >> 6))
+    (_y, _uv, _d, post), _ = stage(
+        "cdef", host_cdef,
+        lambda: df.cdef_device(pre, src, maps[0], damping, sub=sub,
+                               fast_sec=1 if SPEED >= 4 else 0,
+                               cands=(0,) + tuple(pri), **geo),
+        same_cdef)
+    post = post.copy()
+    u = fe.LR_UNIT
+    rows, cols = fe._lr_grid()
+    margin = 2.0 * fe._lambda() * 40.0
+    same_all = lambda a, b: all(np.array_equal(np.asarray(x), np.asarray(y))
+                                for x, y in zip(a, b))
+    for pl, ntaps in ((0, 3), (1, 2)):
+        stage(
+            f"wiener{pl}",
+            lambda: native.lr_wiener_plane(
+                src[pl], post[pl], h, w, u, rows, cols, ntaps=ntaps,
+                margin=margin, n_threads=nthr, want_var=True, mu=0.0),
+            lambda: df.lr_wiener_plane_device(
+                src[pl], post[pl], h, w, u, rows, cols, ntaps, margin,
+                want_var=True),
+            same_all)
+    tier = 2 if SPEED >= 4 else 0
+    stage("sgr",
+          lambda: native.lr_sgr_plane(src[0], post[0], h, w, u, rows, cols,
+                                      10, tier, n_threads=nthr,
+                                      want_var=True, mu=0.0),
+          lambda: df.lr_sgr_plane_device(src[0], post[0], h, w, u, rows,
+                                         cols, 10, tier, want_var=True),
+          same_all)
+
+    # the whole chain on the same frame: decisions equal the host chain's
+    res, chain_ms = _host_ms(lambda: df.run_filter_chain(fe))
+    if tuple(fe._lf_levels) != host_levels or fe._lr_units != host_units:
+        raise AssertionError("[filters] run_filter_chain decisions differ "
+                             "from the host chain's")
+    kernels, copies, dev_ms = _profile(torch, lambda: df.run_filter_chain(fe))
+    print(f"[filters] run_filter_chain (F1 + F2) {chain_ms:.3f} ms host clock, "
+          f"decisions {res[0]} cdef {res[1]}{res[2]} lr {res[4]} equal to the "
+          f"host chain's; one call launches {kernels} CUDA kernels + "
+          f"{copies} copies, device busy {dev_ms:.3f} ms "
+          f"({100.0 * dev_ms / chain_ms:.1f}% of the call's wall)")
+    stages["chain"] = dict(card_ms=chain_ms, kernels=kernels, copies=copies,
+                           device_ms=dev_ms)
+
+    # the encodes: chain auto-engaged against chain off, byte for byte
+    enc = Encoder.new().with_quality(QUALITY).with_speed(SPEED)
+    yy, xx = np.mgrid[0:h, 0:w]
+    alpha = np.clip((xx + yy) * 255 // (w + h - 2), 0, 255).astype(np.uint8)
+    calls = []
+    real = df.run_filter_chain
+
+    def counted(f):
+        out = real(f)
+        calls.append(out is not None)
+        return out
+
+    for what, x, rgba in (("rgb", img, False),
+                          ("rgba", np.dstack([img, alpha]), True)):
+        calls.clear()
+        df.run_filter_chain = counted
+        try:
+            on, wall_on, split_on = _trace_split(enc, x, rgba)
+        finally:
+            df.run_filter_chain = real
+        os.environ["CAVIF_TPU_DEVICE_FILTERS"] = "0"
+        try:
+            off, wall_off, split_off = _trace_split(enc, x, rgba)
+        finally:
+            del os.environ["CAVIF_TPU_DEVICE_FILTERS"]
+        fmt = lambda d: json.dumps({k: round(v, 5) for k, v in sorted(
+            d.items(), key=lambda kv: -kv[1])})
+        print(f"[filters] {what} traced encode, chain on: {wall_on:.4f} s, "
+              f"chain calls {len(calls)}, stages {fmt(split_on)}")
+        print(f"[filters] {what} traced encode, chain off: {wall_off:.4f} s, "
+              f"stages {fmt(split_off)}")
+        if not calls or not all(calls) or "device_filters" not in split_on:
+            raise AssertionError(f"[filters] {what}: the chain did not run")
+        if any(k in split_on for k in ("deblock", "cdef", "lr_solve")):
+            raise AssertionError(f"[filters] {what}: host filter spans ran "
+                                 "beside the chain")
+        if on != off:
+            raise AssertionError(f"[filters] {what}: AVIF bytes differ with "
+                                 "the chain on and off")
+        print(f"[filters] {what}: {len(on)} bytes, identical with the chain "
+              "on and off")
+    print("[filters] " + json.dumps({"stages": stages}))
+    return stages
 
 
 def phase_small_reference(dp, geo, img):
@@ -840,6 +1096,7 @@ def phase_batch(torch, pk, dp, img0):
     from cavif_tpu_torch.av1.speed import SpeedTweaks
     from cavif_tpu_torch.container.parse import read_avif
     from cavif_tpu_torch.ops import colorspace
+    from cavif_tpu_torch.ops import device_filters as df
     from cavif_tpu_torch.ops.quality import quality_to_quantizer
     from cavif_tpu_torch.parallel import batch as pbatch
 
@@ -858,20 +1115,46 @@ def phase_batch(torch, pk, dp, img0):
         calls.append(int(srcs.shape[0]))
         return real(srcs, **kw)
 
+    chains = []  # run_filter_chain calls (True: the chain ran)
+    real_chain = df.run_filter_chain
+
+    def counted_chain(fe):
+        res = real_chain(fe)
+        chains.append(res is not None)
+        return res
+
     dp.run_pass1_batch = counted
+    df.run_filter_chain = counted_chain
     try:
         t0 = time.perf_counter()
         pbatch.encode_batch_sharded(imgs, enc)
         warm = time.perf_counter() - t0
         calls.clear()
+        chains.clear()
         pk.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = pbatch.encode_batch_sharded(imgs, enc)
         wall = time.perf_counter() - t0
         launches = dict(pk.LAUNCHES)
+        n_chains = len(chains)
+        if not chains or not all(chains):
+            raise AssertionError(f"batch: filter chain calls {chains}")
     finally:
         dp.run_pass1_batch = real
+        df.run_filter_chain = real_chain
+    # the same batch with the chain off: every AVIF byte for byte
+    os.environ["CAVIF_TPU_DEVICE_FILTERS"] = "0"
+    try:
+        off = pbatch.encode_batch_sharded(imgs, enc)
+    finally:
+        del os.environ["CAVIF_TPU_DEVICE_FILTERS"]
+    for i, (a, b) in enumerate(zip(out, off)):
+        if a != b:
+            raise AssertionError(f"batch image {i}: AVIF differs with the "
+                                 "filter chain on and off")
+    print(f"[batch] filter chain ran {n_chains} times in the batch (one per "
+          f"stream); all {len(out)} AVIFs identical with the chain off")
     mp = len(imgs) * SIZE * SIZE / 1e6
     print(f"[batch] encode_batch_sharded {len(rgbs)} RGB + 1 RGBA "
           f"{SIZE}x{SIZE} Q{QUALITY} s{SPEED}: {wall:.4f} s "
@@ -928,6 +1211,8 @@ def phase_batch(torch, pk, dp, img0):
         planes = colorspace.rgb_to_ycbcr_host(rgb, depth=10)
         ref_planes = [planes[..., p] for p in range(3)]
         fe = FrameEncoder(planes, cfg, src8=rgb)
+        # "inject" names no device, so these frames take the host C++
+        # filters: the batched AVIFs (chain on) are held against them too
         fe._device_search = "inject"
         fe._dev_state = (grids[i], fe._dev_part_dict(grids[i]))
         data = fe.encode()
@@ -994,6 +1279,7 @@ def main() -> int:
     phase_small_reference(dp, geo, img)
     launches = phase_encode(torch, pk, img)
     phase_quality(img)
+    phase_filters(torch, img)
     launches["mode_cost"] = phase_block_search(torch, sk, bs, geo, img)
     phase_batch(torch, pk, dp, img)
     launches.update(proto_launches)

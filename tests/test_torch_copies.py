@@ -50,12 +50,17 @@ VERBATIM = (
 EDITED = (
     "__init__.py",
     "pipeline.py",
+    # two seams: the device default (the card, raising without one) and
+    # no host fall back in _device_grids; the device filter-chain branch
+    # of encode() is the reference's, on the port's ops/device_filters
     "av1/encoder.py",
     "av1/tables.py",
     "ops/colorspace.py",
     "ops/dirtyalpha.py",
     "ops/device_pass1.py",
     "ops/block_search.py",
+    "ops/attachment.py",
+    "ops/device_filters.py",
     "parallel/__init__.py",
     "parallel/batch.py",
 )
