@@ -294,8 +294,10 @@ class Encoder:
             return None
         if self.alpha_color_mode is AlphaColorMode.UnassociatedClean:
             from .ops.dirtyalpha import blurred_dirty_alpha
+            from .utils import trace
 
-            return blurred_dirty_alpha(rgba)
+            with trace.span("dirty_alpha"):
+                return blurred_dirty_alpha(rgba)
         # Premultiplied: c*255/a pass; a in {0, 255} zeroes the whole pixel,
         # alpha included -- replicated literally from av1encoder.rs:283-294.
         a = rgba[..., 3].astype(np.uint16)

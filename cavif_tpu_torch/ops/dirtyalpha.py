@@ -18,9 +18,16 @@ pass is one pad-and-shift window sum):
 premultiplied_minmax(px, a) = (min((r+16)/a, px), max((r+239)/a, px)) with
 r = (px*a/255)*255 (dirtyalpha.rs:115-124).
 
-The implementation is written once against an array namespace; this package
-runs it with numpy on the host (a handful of window sums is cheaper than a
-device round-trip).
+The implementation is written once against an array namespace.
+`blurred_dirty_alpha` runs it with numpy by default: that is the
+reference's host path, and the encoder's UnassociatedClean alpha mode calls
+it so. `backend="torch"` runs it on the card, bit-equal to numpy, and is
+the faster of the two: on a 1024x1024 RGBA image with an NVIDIA H100 80GB
+HBM3 (700.00 W) the torch backend took 3.4-3.7 ms with upload and fetch,
+numpy 368-397 ms on that machine's host (chip_smoke.py's [dirtyalpha]
+line). Torch tensors have no `.astype` and no edge padding, so the casts go
+through `_cast` and `_TorchXP.pad` replicates the edge by clamped index
+gathers.
 """
 
 from __future__ import annotations
@@ -28,6 +35,43 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
+
+
+def _cast(x, dtype):
+    """x.astype(dtype) on a numpy array, x.to(dtype) on a torch tensor."""
+    return x.to(dtype) if isinstance(x, torch.Tensor) else x.astype(dtype)
+
+
+class _TorchXP:
+    """The numpy names that the passes use, on torch tensors."""
+
+    int32, uint8 = torch.int32, torch.uint8
+    where = staticmethod(torch.where)
+    zeros_like = staticmethod(torch.zeros_like)
+    minimum = staticmethod(torch.minimum)
+    clip = staticmethod(torch.clamp)
+
+    @staticmethod
+    def pad(x, widths, mode):
+        """Edge padding of the two leading axes (the only mode used)."""
+        for ax, (lo, hi) in enumerate(widths[:2]):
+            n = x.shape[ax]
+            idx = torch.arange(-lo, n + hi, device=x.device).clamp(0, n - 1)
+            x = x.index_select(ax, idx)
+        return x
+
+    @staticmethod
+    def maximum(x, y: int):
+        return x.clamp(min=y)
+
+    @staticmethod
+    def sum(x, axis):
+        return torch.sum(x, dim=axis)
+
+    @staticmethod
+    def concatenate(xs, axis):
+        return torch.cat(xs, dim=axis)
 
 
 def _window9(xp, x):
@@ -58,11 +102,12 @@ def _premultiplied_minmax(xp, px, a):
 
 def _pass1_rowsums(xp, rgba):
     """Per-row weight/color sums of edge-adjacent semi-transparent pixels."""
-    rgba = rgba.astype(xp.int32)
+    rgba = _cast(rgba, xp.int32)
     rgb, a = rgba[..., :3], rgba[..., 3]
     w = _weights(xp, a)
     semi = (a != 0) & (a != 255)
-    touches_clear = _window9(xp, (a == 0).astype(xp.int32)[..., None])[..., 0] > 0
+    clear = _cast(a == 0, xp.int32)[..., None]
+    touches_clear = _window9(xp, clear)[..., 0] > 0
     m = semi & touches_clear
     wm = xp.where(m, w, 0)
     # Row sums stay in int32 (per-pixel max 255*255 = 65025; safe to ~32K
@@ -73,7 +118,7 @@ def _pass1_rowsums(xp, rgba):
 
 
 def _pass23(xp, rgba, neutral):
-    rgba = rgba.astype(xp.int32)
+    rgba = _cast(rgba, xp.int32)
     rgb, a = rgba[..., :3], rgba[..., 3]
     opaque = a == 255
     clear = a == 0
@@ -101,18 +146,33 @@ def _pass23(xp, rgba, neutral):
     out_rgb = xp.where(
         opaque[..., None], bled, xp.where(clear[..., None], blur, blur_clamped)
     )
-    return xp.concatenate([out_rgb, a[..., None]], axis=-1).astype(xp.uint8)
+    return _cast(xp.concatenate([out_rgb, a[..., None]], axis=-1),
+                 xp.uint8)
 
 
 def blurred_dirty_alpha(
-    rgba: np.ndarray, backend: str = "numpy"
+    rgba: np.ndarray, backend: str = "numpy", device=None
 ) -> Optional[np.ndarray]:
     """Clean invisible RGB data under transparency. rgba: (H, W, 4) uint8.
 
     Returns the cleaned image, or None when there is nothing to clean (no
     semi-transparent pixel adjacent to a fully-transparent one), matching
-    dirtyalpha.rs:34-36.
+    dirtyalpha.rs:34-36. backend="torch" runs the passes on `device`
+    (None: the card, raising without one; "cpu" for tests); the sums
+    over rows go to int64 on the host, as the numpy backend's do.
     """
+    if backend == "torch":
+        from .device_pass1 import resolve_device
+
+        x = torch.from_numpy(np.ascontiguousarray(rgba)).to(
+            resolve_device(device))
+        wsum_rows, csum_rows = _pass1_rowsums(_TorchXP, x)
+        weights = int(wsum_rows.cpu().numpy().astype(np.int64).sum())
+        if weights == 0:
+            return None
+        csum = csum_rows.cpu().numpy().astype(np.int64).sum(axis=0)
+        neutral = torch.from_numpy((csum // weights).astype(np.int32))
+        return _pass23(_TorchXP, x, neutral.to(x.device)).cpu().numpy()
     if backend != "numpy":
         raise ValueError(f"unknown dirty-alpha backend {backend!r}")
     x = np.asarray(rgba)

@@ -86,7 +86,21 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    encode_batch (the hybrid card + host scheduler); the filter chain runs
    once per stream and every AVIF equals the same batch's with the chain
    off;
-8. one JSON line listing the kernels, the card line, and last the JSON
+8. pass 2's device reconstruction (ops/device_pass2.py on device_itx.py
+   and device_predict.py, plain PyTorch): the uniform and scan entry points
+   on the card bit-equal to the host walk of a real 128x128 encode; every
+   inverse transform size and DCT/ADST variant bit-equal to the CPU and
+   the native C++, the predictors on every candidate to the CPU; at the
+   reference's measured configuration (1024x1024, n = 16, dc_q 499, ac_q
+   616, seeded decisions) the scan and the 3-plane frame executor at tile
+   grids (1, 1) and (8, 8) bit-equal to the CPU, the frame to the
+   per-plane scans and each (8, 8) tile to its own scan; per entry point
+   the host-clock and CUDA-event ms per call, the host preparation's ms,
+   the levels and lanes, and the CUDA kernels and device-busy ms of one
+   call; for context the traced encode's tiles_pass1+2 span;
+9. the dirty-alpha cleaner's torch backend on the card bit-equal to numpy
+   on a 1024x1024 RGBA image with a transparent region, with times;
+10. one JSON line listing the kernels, the card line, and last the JSON
    result line.
 
 Without a CUDA card, or outside a checkout of the repository, it exits
@@ -119,6 +133,13 @@ ARGMIN_TOL = 1e-3
 COST_RTOL = 2e-4
 BF16_REL = 2.0 ** -8
 PROTO_TIERS = (4, 8, 16, 32)
+# pass 2's wavefront at the reference's measured configuration
+# (cavif_tpu/ops/device_pass2.py:23-33): 1024x1024 planes of 64x64
+# blocks of n = 16, 10 bits, dc_q 499, ac_q 616; the frame has 3 planes
+PASS2_SIZE, PASS2_N, PASS2_DQ, PASS2_AQ = 1024, 16, 499, 616
+ITX_SIZES = ((4, 4), (8, 8), (16, 16), (32, 32), (64, 64), (8, 4), (4, 8),
+             (16, 8), (8, 16), (32, 16), (16, 32))
+PRED_SIZES = ((8, 8), (16, 16), (32, 32), (16, 8), (8, 16))
 REPLACES = {
     "dir_cost": "cavif_tpu/ops/device_pass1.py:594",  # _fused_dir_cost
     "nd_cost": "cavif_tpu/ops/device_pass1.py:475",   # _fused_nd_cost
@@ -478,9 +499,11 @@ def _host_ms(fn, reps: int = 3):
     return out, sorted(ts)[len(ts) // 2]
 
 
-def _profile(torch, fn):
+def _profile(torch, fn, host: bool = False):
     """(CUDA kernels, memory copies/sets, summed device ms) of one call of
-    fn under torch.profiler."""
+    fn under torch.profiler; with host=True also the host side of the
+    same call: the ms of its top-level aten ops (dispatch and issue) and
+    the ms inside CUDA launch calls, both inflated by the profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -489,15 +512,21 @@ def _profile(torch, fn):
         fn()
         torch.cuda.synchronize()
     kernels = copies = 0
-    dev_us = 0.0
+    dev_us = ops_us = launch_us = 0.0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
+            if e.name.startswith(("cudaLaunch", "cuLaunch")):
+                launch_us += e.time_range.elapsed_us()
+            elif e.name.startswith("aten::") and e.cpu_parent is None:
+                ops_us += e.time_range.elapsed_us()
             continue
         if e.name.startswith(("Memcpy", "Memset")):
             copies += 1
         else:
             kernels += 1
         dev_us += e.time_range.elapsed_us()
+    if host:
+        return kernels, copies, dev_us / 1e3, ops_us / 1e3, launch_us / 1e3
     return kernels, copies, dev_us / 1e3
 
 
@@ -1231,6 +1260,200 @@ def phase_batch(torch, pk, dp, img0):
                 sequential_s=seq, encode_batch_s=hyb)
 
 
+def _same(what, got, ref):
+    if (got.shape != ref.shape or got.dtype != ref.dtype
+            or not np.array_equal(got, ref)):
+        bad = int((got != ref).sum()) if got.shape == ref.shape else -1
+        raise AssertionError(f"{what}: differs ({got.shape} {got.dtype} "
+                             f"against {ref.shape} {ref.dtype}, {bad} "
+                             "entries)")
+
+
+def phase_pass2(torch, img):
+    """Pass 2's device reconstruction (ops/device_pass2.py on
+    device_itx.py and device_predict.py, plain PyTorch on the card): the
+    host walk of a real 128x128 encode reproduced bit for bit by the
+    uniform and scan entry points; the parts on their own (every inverse
+    transform size and DCT/ADST variant against the CPU and the native
+    C++; the predictors on every candidate against the CPU); at 1024x1024
+    the scan and frame executors (tile grids (1, 1) and (8, 8)) bit-equal
+    to the same functions on the CPU, the frame to the per-plane scans and
+    each (8, 8) tile of plane 0 to its own scan; then per entry point the
+    host-clock and CUDA-event ms per call, the host preparation's ms, the
+    levels S and lanes kmax, and the CUDA kernels, copies and device-busy
+    ms of one call (torch.profiler)."""
+    from cavif_tpu_torch import Encoder, native
+    from cavif_tpu_torch.ops import device_pass2 as p2
+    from cavif_tpu_torch.ops.device_itx import inv_txfm_batch
+    from cavif_tpu_torch.ops.device_predict import (_cand_index,
+                                                    predict_batch_exact)
+    from cavif_tpu_torch.tools.pass2_cases import host_walk_case, random_frame
+
+    # the host walk of a real encode (host cascade, python entropy coder)
+    levels, modes, deltas, va, ha, dq, aq, ref = host_walk_case()
+    for f in (p2.recon_wavefront_uniform, p2.recon_wavefront_scan):
+        _same(f"[pass2] {f.__name__} against the host walk",
+              f(levels, modes, deltas, va, ha, 128, 128, dq, aq, 10, 16),
+              ref)
+    print(f"[pass2] 128x128 host walk (dc_q {dq}, ac_q {aq}): "
+          "recon_wavefront_uniform and recon_wavefront_scan on the card "
+          "bit-equal to fe.planes[0].recon")
+
+    # the parts on their own
+    rng = np.random.default_rng(5)
+    n_itx = 0
+    for (txw, txh) in ITX_SIZES:
+        cw, ch = min(txw, 32), min(txh, 32)
+        lv = rng.integers(-300, 301, (64, ch, cw)).astype(np.int32)
+        lv[rng.random(lv.shape) < 0.7] = 0
+        for v, h in ((0, 0), (1, 0), (0, 1), (1, 1)):
+            if (v or h) and max(txw, txh) > 16:
+                continue  # ADST exists up to 16 points
+            args = (txw, txh, PASS2_DQ, PASS2_AQ, 10, v, h)
+            card = inv_txfm_batch(lv, *args)
+            _same(f"[pass2] inv_txfm_batch {txw}x{txh} ({v}, {h}) card "
+                  "against CPU", card, inv_txfm_batch(lv, *args,
+                                                      device="cpu"))
+            for b in range(len(lv)):
+                _same(f"[pass2] inv_txfm_batch {txw}x{txh} ({v}, {h}) "
+                      "against native", card[b],
+                      native.inv_txfm_exact(lv[b], *args))
+            n_itx += 1
+    n_pred = 0
+    for (bw, bh) in PRED_SIZES:
+        for use_deltas in (True, False):
+            cands = sorted(_cand_index(use_deltas))
+            B = 4 * len(cands)
+            L = bw + bh
+            nb = (rng.integers(0, 1024, (B, L)).astype(np.int32),
+                  rng.integers(0, 1024, (B, L)).astype(np.int32),
+                  rng.integers(0, 1024, B).astype(np.int32),
+                  rng.random(B) < 0.8, rng.random(B) < 0.8)
+            md = np.asarray([cands[i % len(cands)] for i in range(B)])
+            args = (md[:, 0], md[:, 1], *nb, bw, bh, 10)
+            _same(f"[pass2] predict_batch_exact {bw}x{bh} card against CPU",
+                  predict_batch_exact(*args),
+                  predict_batch_exact(*args, device="cpu"))
+            n_pred += 1
+    print(f"[pass2] parts: inv_txfm_batch at {len(ITX_SIZES)} sizes, "
+          f"{n_itx} (size, variant) cases of 64 blocks, card bit-equal to "
+          f"the CPU and to native.inv_txfm_exact; predict_batch_exact at "
+          f"{len(PRED_SIZES)} sizes with every candidate (with and without "
+          "angle deltas), card bit-equal to the CPU")
+
+    # full width: a seeded 3-plane 1024x1024 frame
+    H = W = PASS2_SIZE
+    n = PASS2_N
+    nby, nbx = H // n, W // n
+    frame = random_frame(11, 3, H, W, n)
+    one = tuple(a[0] for a in frame)
+    args = (H, W, PASS2_DQ, PASS2_AQ, 10, n)
+    scan = p2.recon_wavefront_scan(*one, *args)
+    _same("[pass2] recon_wavefront_scan card against CPU", scan,
+          p2.recon_wavefront_scan(*one, *args, device="cpu"))
+    planes = [scan] + [p2.recon_wavefront_scan(*(a[p] for a in frame), *args)
+                       for p in (1, 2)]
+    for grid in ((1, 1), (8, 8)):
+        got = p2.recon_wavefront_scan_frame(*frame, *args, tile_grid=grid)
+        _same(f"[pass2] recon_wavefront_scan_frame {grid} card against CPU",
+              got, p2.recon_wavefront_scan_frame(*frame, *args,
+                                                 tile_grid=grid,
+                                                 device="cpu"))
+        if grid == (1, 1):
+            _same("[pass2] frame (1, 1) against the per-plane scans", got,
+                  np.stack(planes))
+            continue
+        tr, tc = grid
+        for ty in range(tr):
+            for tx in range(tc):
+                b0, b1 = ty * nby // tr, (ty + 1) * nby // tr
+                c0, c1 = tx * nbx // tc, (tx + 1) * nbx // tc
+                sub = p2.recon_wavefront_scan(
+                    *(a[0, b0:b1, c0:c1] for a in frame), (b1 - b0) * n,
+                    (c1 - c0) * n, PASS2_DQ, PASS2_AQ, 10, n)
+                _same(f"[pass2] frame {grid} tile ({ty}, {tx})",
+                      got[0, b0 * n:b1 * n, c0 * n:c1 * n], sub)
+    print(f"[pass2] {H}x{W}, n = {n}: recon_wavefront_scan and "
+          "recon_wavefront_scan_frame at tile grids (1, 1) and (8, 8) on "
+          "the card bit-equal to the CPU; the frame at (1, 1) equal to the "
+          "three per-plane scans, each (8, 8) tile of plane 0 to its own "
+          "scan (recon_wavefront_uniform runs the scan's walk)")
+
+    # numbers: per entry point at full width, after a warm-up
+    single = tuple(a[:1] for a in frame)
+    entries = (
+        ("uniform", lambda: p2.recon_wavefront_uniform(*one, *args),
+         lambda: p2._frame_inputs(*single, H, W, n, (1, 1))[0], 1),
+        ("scan", lambda: p2.recon_wavefront_scan(*one, *args),
+         lambda: p2._frame_inputs(*single, H, W, n, (1, 1))[0], 1),
+        ("frame (1, 1)", lambda: p2.recon_wavefront_scan_frame(
+            *frame, *args, tile_grid=(1, 1)),
+         lambda: p2._frame_inputs(*frame, H, W, n, (1, 1))[0], 3),
+        ("frame (8, 8)", lambda: p2.recon_wavefront_scan_frame(
+            *frame, *args, tile_grid=(8, 8)),
+         lambda: p2._frame_inputs(*frame, H, W, n, (8, 8))[0], 3),
+    )
+    out = {}
+    for name, call, prep, planes_n in entries:
+        ev_ms, host_ms = _cuda_ms(torch, call, 3, host=True)
+        starts, prep_ms = _host_ms(prep)
+        S, kmax = len(starts) - 1, int(np.diff(starts).max())
+        kernels, copies, dev_ms, ops_ms, launch_ms = _profile(torch, call,
+                                                              host=True)
+        out[name] = dict(host_ms=host_ms, event_ms=ev_ms, prep_ms=prep_ms,
+                         S=S, kmax=kmax, kernels=kernels, copies=copies,
+                         device_ms=dev_ms, aten_ms=ops_ms,
+                         launch_ms=launch_ms, planes=planes_n)
+        print(f"[pass2] {name:<12} {host_ms:.3f} ms host clock, "
+              f"{ev_ms:.3f} ms CUDA events per call ({host_ms / planes_n:.3f}"
+              f" ms per plane); host preparation {prep_ms:.3f} ms; S {S} "
+              f"levels, kmax {kmax}; {kernels} CUDA kernels + {copies} "
+              f"copies per call ({kernels / S:.1f} kernels per level), "
+              f"device busy {dev_ms:.3f} ms ({100.0 * dev_ms / host_ms:.1f}%"
+              f" of the call; {host_ms - prep_ms - dev_ms:.3f} ms of the "
+              "call is neither host preparation nor device work); under the "
+              f"profiler the host spent {ops_ms:.3f} ms in top-level aten "
+              f"ops, {launch_ms:.3f} ms of it inside CUDA launch calls")
+    enc = Encoder.new().with_quality(QUALITY).with_speed(SPEED)
+    _avif, wall, split = _trace_split(enc, img, False)
+    span = split.get("tiles_pass1+2")
+    print(f"[pass2] for context, different work: the tiles_pass1+2 span of "
+          f"one traced default RGB encode of the {img.shape[0]}x"
+          f"{img.shape[1]} photo (host C++ "
+          f"pass 1 and pass 2 of three planes with the real partitions and "
+          f"entropy coding): {span:.4f} s of {wall:.4f} s")
+    out["tiles_pass1+2_s"] = span
+    print("[pass2] " + json.dumps(out))
+    return out
+
+
+def phase_dirtyalpha(torch, img):
+    """The dirty-alpha cleaner's torch backend on the card against its
+    numpy backend on a 1024x1024 RGBA image with a transparent region:
+    bit-equal, with times and the kernels of one call."""
+    from cavif_tpu_torch.ops.dirtyalpha import blurred_dirty_alpha
+
+    h, w = img.shape[:2]
+    xx = np.mgrid[0:h, 0:w][1]
+    # transparent left third, a semi-transparent ramp, opaque right third
+    alpha = np.clip((xx - w // 3) * 255 // max(w // 3, 1), 0, 255)
+    rgba = np.dstack([img, alpha.astype(np.uint8)])
+    want, np_ms = _host_ms(lambda: blurred_dirty_alpha(rgba))
+    call = lambda: blurred_dirty_alpha(rgba, backend="torch")
+    got, card_ms = _host_ms(call)
+    if want is None or got is None:
+        raise AssertionError("[dirtyalpha] nothing to clean")
+    _same("[dirtyalpha] torch on the card against numpy", got, want)
+    ev_ms = _cuda_ms(torch, call, 3)
+    kernels, copies, dev_ms = _profile(torch, call)
+    print(f"[dirtyalpha] {h}x{w} RGBA: torch on the card bit-equal to numpy; "
+          f"card {card_ms:.3f} ms host clock, {ev_ms:.3f} ms CUDA events "
+          f"(upload and fetch included), {kernels} kernels + {copies} copies "
+          f"busy {dev_ms:.3f} ms; numpy {np_ms:.3f} ms")
+    return dict(card_ms=card_ms, event_ms=ev_ms, numpy_ms=np_ms,
+                kernels=kernels, copies=copies, device_ms=dev_ms)
+
+
 def main() -> int:
     import torch
 
@@ -1282,6 +1505,8 @@ def main() -> int:
     phase_filters(torch, img)
     launches["mode_cost"] = phase_block_search(torch, sk, bs, geo, img)
     phase_batch(torch, pk, dp, img)
+    phase_pass2(torch, img)
+    phase_dirtyalpha(torch, img)
     launches.update(proto_launches)
     # K4's and K5's rows sum the four tiers at the harnesses' defaults
     # (reduce "matmul", variant "full", the default tile)

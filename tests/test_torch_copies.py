@@ -61,6 +61,10 @@ EDITED = (
     "ops/block_search.py",
     "ops/attachment.py",
     "ops/device_filters.py",
+    # torch on tensors, the device argument, int64 index tables
+    "ops/device_itx.py",
+    "ops/device_predict.py",
+    "ops/device_pass2.py",
     "parallel/__init__.py",
     "parallel/batch.py",
 )
