@@ -14,9 +14,14 @@ model, DP and return formats, numpy in and numpy out, plus `device=`.
 `backend` is "auto" (K3 on a CUDA device, the plain version on the CPU)
 or "plain" (the plain version on any device, for comparisons). The TPU's
 n <= 16 limit on its Pallas backend was a VMEM fact and is not carried
-over: on the card every tier runs K3. Meshes are not supported yet.
-Planes are 8 or 10 bits deep at most (K3 takes pixels in [0, 1023]); the
-entry points refuse deeper ones on every backend.
+over: on the card every tier runs K3. With a mesh (parallel/mesh.py) each
+rank searches its planes over its band of whole max_n rows, with max_n
+rows of halo, and every rank returns the whole result: `_neighbors`
+needs no band offset, since a band's first block row has the halo above
+it (its local `by > 0` is then right) and the halo below holds the n rows
+that `left_ext` reaches. Planes are 8 or 10 bits deep at most (K3 takes
+pixels in [0, 1023]); the entry points refuse deeper ones on every
+backend.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 
 from ..av1.transforms import AC_BIAS
 from ..native.contract import CAND_MODES  # noqa: F401  (the candidate order)
+from ..parallel import mesh as shard
 from .device_pass1 import _f32, _lane_quant, resolve_device
 from .search_kernels import (  # noqa: F401
     DIAG_MODES, NONDIRECTIONAL, mode_cost, mode_cost_ref, search_consts,
@@ -110,15 +116,24 @@ def _neighbors(planes, n: int, bit_depth: int) -> dict:
     )
 
 
+def _check_depth(bit_depth: int) -> None:
+    if bit_depth > MAX_BIT_DEPTH:
+        raise ValueError(f"bit_depth {bit_depth}: the block search takes "
+                         f"planes of at most {MAX_BIT_DEPTH} bits")
+
+
+def _check_shape(H: int, W: int, n: int) -> None:
+    if H % n or W % n:
+        raise ValueError(f"plane {H}x{W} is not a multiple of {n}")
+
+
 def search_inputs(planes, n: int, bit_depth: int, dc_q, ac_q, lam) -> dict:
     """K3's keyword arguments for every aligned n x n block of planes
     (N, H, W) int32 on one device: the per-block tensors of
     pallas_search._prep, flattened to NB = N * nby * nbx rows, the block
     size's constant tables (with K3's split D, `tiles`), and the quantizer
     of dc_q / ac_q at lam. Raises ValueError above MAX_BIT_DEPTH."""
-    if bit_depth > MAX_BIT_DEPTH:
-        raise ValueError(f"bit_depth {bit_depth}: the block search takes "
-                         f"planes of at most {MAX_BIT_DEPTH} bits")
+    _check_depth(bit_depth)
     N, H, W = planes.shape
     nby, nbx = H // n, W // n
     NB = N * nby * nbx
@@ -151,8 +166,7 @@ def _search(planes, n: int, bit_depth: int, dc_q, ac_q, lam, backend: str):
     """(modes int8, min costs f32), each (N, H/n, W/n), for planes
     (N, H, W) int32 on one device."""
     N, H, W = planes.shape
-    if H % n or W % n:
-        raise ValueError(f"plane {H}x{W} is not a multiple of {n}")
+    _check_shape(H, W, n)
     kw = search_inputs(planes, n, bit_depth, dc_q, ac_q, lam)
     cost = (mode_cost if backend == "auto" else mode_cost_ref)(**kw)
     cost = cost.view(N, H // n, W // n, -1)
@@ -160,14 +174,37 @@ def _search(planes, n: int, bit_depth: int, dc_q, ac_q, lam, backend: str):
     return idx.to(torch.int8), best
 
 
-def _setup(planes, backend: str, device, mesh=None):
-    if mesh is not None:
-        raise NotImplementedError(
-            "the PyTorch block search does not shard over a mesh yet")
+def _run(planes, n: int, bit_depth: int, backend: str, device, mesh,
+         specs, body) -> list:
+    """body(x) -> a list of (N', H'/u, W/u) tensors on planes x, run on
+    the whole (N, H, W) stack, or with a mesh on this rank's halo'd band
+    of whole n-row superblocks and gathered; numpy arrays out. specs: one
+    (u, dtype) per output. Every argument is checked before any rank
+    computes, so that all ranks raise together."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, not {backend!r}")
+    _check_depth(bit_depth)
     dev = resolve_device(device)
-    return torch.from_numpy(np.ascontiguousarray(planes, np.int32)).to(dev)
+    ax = None if mesh is None else shard.axes(mesh)
+    planes = np.asarray(planes)
+    N, H, W = planes.shape
+    _check_shape(H, W, n)
+
+    def upload(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    with torch.inference_mode():
+        if ax is None:
+            return [t.cpu().numpy() for t in body(upload(planes))]
+        shard.check_divisible("H", H, ax.tile, "tile")
+        return shard.run_sharded(
+            ax, N, H, n, [(u, (W // u,), dt) for u, dt in specs],
+            lambda b0, b1, h0, h1: body(upload(planes[b0:b1, h0:h1])))
+
+
+def _sizes(min_n: int, max_n: int) -> list:
+    """The partition search's tiers: min_n, 2 min_n, ... up to max_n."""
+    return [min_n << k for k in range((max_n // min_n).bit_length())]
 
 
 def _partition_body(planes, dc_q, ac_q, lam, bit_depth: int, min_n: int,
@@ -176,11 +213,7 @@ def _partition_body(planes, dc_q, ac_q, lam, bit_depth: int, min_n: int,
     tensors (the reference's _partition_body): one K3 call per tier n in
     [min_n, max_n]. Returns ({n: (modes, costs)}, {n: codes}) with codes
     0 = NONE, 1 = SPLIT per aligned square of each tier above min_n."""
-    sizes = []
-    n = min_n
-    while n <= max_n:
-        sizes.append(n)
-        n *= 2
+    sizes = _sizes(min_n, max_n)
     tiers = {n: _search(planes, n, bit_depth, dc_q, ac_q, lam, backend)
              for n in sizes}
     lam32 = np.float32(lam)
@@ -212,16 +245,25 @@ def plane_partition_search(
 ):
     """Run the whole-plane multi-tier search + partition DP. planes:
     (N, H, W) int32 with H, W multiples of max_n, bit_depth at most 10
-    (ValueError above). Returns
+    (ValueError above). With a mesh, each rank runs K3 on its planes over
+    its band of max_n rows and every rank returns the whole result; H must
+    be divisible by the tile axis (ValueError), as the reference's
+    sharding requires, while N need not be divisible by the data axis
+    (the ranks' shares differ by at most one plane). Returns
     ({n: (modes, costs)}, {n: codes}) as host numpy arrays."""
-    x = _setup(planes, backend, device, mesh)
-    with torch.inference_mode():
+    sizes = _sizes(min_n, max_n)
+
+    def body(x):
         tiers, codes = _partition_body(x, dc_q, ac_q, lam, bit_depth, min_n,
                                        max_n, backend)
-        tiers = {n: (m.cpu().numpy(), c.cpu().numpy())
-                 for n, (m, c) in tiers.items()}
-        codes = {n: v.cpu().numpy() for n, v in codes.items()}
-    return tiers, codes
+        return [t for n in sizes for t in tiers[n]] \
+            + [codes[n] for n in sizes[1:]]
+
+    specs = [(n, dt) for n in sizes for dt in (np.int8, np.float32)] \
+        + [(n, np.int8) for n in sizes[1:]]
+    out = _run(planes, max_n, bit_depth, backend, device, mesh, specs, body)
+    tiers = {n: (out[2 * i], out[2 * i + 1]) for i, n in enumerate(sizes)}
+    return tiers, dict(zip(sizes[1:], out[2 * len(sizes):]))
 
 
 def plane_mode_search_costs(
@@ -233,15 +275,18 @@ def plane_mode_search_costs(
     n: int = 32,
     backend: str = "auto",
     device: str = "cuda",
+    mesh=None,
 ):
     """Best intra mode (13 candidates) and its RD cost for every aligned
     n x n block of a batch of planes: (modes int8 (N, H/n, W/n), costs f32
     (N, H/n, W/n)). planes: (N, H, W) with H, W multiples of n, bit_depth
-    at most 10 (ValueError above)."""
-    x = _setup(planes, backend, device)
-    with torch.inference_mode():
-        modes, costs = _search(x, n, bit_depth, dc_q, ac_q, lam, backend)
-        return modes.cpu().numpy(), costs.cpu().numpy()
+    at most 10 (ValueError above). A mesh shards as in
+    plane_partition_search, over bands of n rows."""
+    modes, costs = _run(
+        planes, n, bit_depth, backend, device, mesh,
+        [(n, np.int8), (n, np.float32)],
+        lambda x: _search(x, n, bit_depth, dc_q, ac_q, lam, backend))
+    return modes, costs
 
 
 def plane_mode_search(
@@ -253,10 +298,11 @@ def plane_mode_search(
     n: int = 32,
     backend: str = "auto",
     device: str = "cuda",
+    mesh=None,
 ):
     """Best intra mode (13 candidates) for every aligned n x n block of a
     batch of planes. planes: (N, H, W) with H, W multiples of n, bit_depth
-    at most 10 (ValueError above). Returns (N, H/n, W/n) int8 indices into
-    CAND_MODES."""
+    at most 10 (ValueError above); a mesh as in plane_mode_search_costs.
+    Returns (N, H/n, W/n) int8 indices into CAND_MODES."""
     return plane_mode_search_costs(planes, dc_q, ac_q, lam, bit_depth, n,
-                                   backend, device)[0]
+                                   backend, device, mesh)[0]

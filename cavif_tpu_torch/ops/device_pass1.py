@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..av1.transforms import AC_BIAS, dct2_matrix, get_gain
+from ..parallel import mesh as shard
 from . import colorspace
 from .pass1_kernels import (_mm, dir_cost, nd_cost, nd_preds, pack_kt,
                             pack_mk)
@@ -51,6 +52,7 @@ DIR_MODES = (1, 2, 3, 4, 5, 6, 7, 8)  # V, H, D45, D135, D113, D157, D203, D67
 DELTAS = (-3, -2, -1, 1, 2, 3)
 
 SQ_TIERS = (4, 8, 16, 32)  # px; the 64 tier joins when max_px >= 64
+SB = 64  # superblock px: a mesh's band and halo unit
 RECT_SHAPES = ((8, 4), (4, 8), (16, 8), (8, 16), (32, 16), (16, 32))
 
 MATMUL_MODES = ("f32", "bf16")
@@ -211,12 +213,14 @@ def shape_consts(bw: int, bh: int, use_deltas: bool) -> dict:
     return out
 
 
-def _nbrs(planes, bw: int, bh: int, bit_depth: int, tile_px):
+def _nbrs(planes, bw: int, bh: int, bit_depth: int, tile_px, row0: int = 0):
     """Per-block neighbor tensors over the whole (P, H, W) int32 plane stack
     for the aligned (bh, bw) block grid, with spec availability fallbacks
     AND tile-boundary masking (tiles are prediction-independent; a block
     whose above/left row belongs to another tile treats it as unavailable,
-    which is exactly the pass-2 walk's availability).
+    which is exactly the pass-2 walk's availability). `row0` is the global
+    row of planes' first row: a mesh rank passes its halo'd band
+    (parallel/mesh.py), so the tile-boundary test stays global.
 
     Returns dict with above_s/left_s (resolved (P, nby, nbx, n)), al_s, dc,
     ext (P, nby, nbx, E) f32 — the [al, above_ext, left_ext] vector for the
@@ -243,7 +247,8 @@ def _nbrs(planes, bw: int, bh: int, bit_depth: int, tile_px):
 
     by = torch.arange(nby, device=dev)
     bx = torch.arange(nbx, device=dev)
-    have_a = (((by * bh) % th) != 0)[None, :, None].expand(P, nby, nbx)
+    have_a = (((row0 + by * bh) % th) != 0)[None, :, None].expand(
+        P, nby, nbx)
     have_l = (((bx * bw) % tw) != 0)[None, None, :].expand(P, nby, nbx)
     ha = have_a[..., None]
     hl = have_l[..., None]
@@ -330,8 +335,9 @@ def _lane_quant(ncoded: int, dc_q, ac_q, gain, ac_bias):
 
 class ShapeCost(torch.nn.Module):
     """Whole-plane RD cost of one block shape: forward(planes, dc_q, ac_q,
-    lam, tile_px) -> (P, nby, nbx, C) f32 costs in the candidate order of
-    _cand_tables(use_deltas). Port of cavif_tpu's `_cost_body`.
+    lam, tile_px, row0=0) -> (P, nby, nbx, C) f32 costs in the candidate
+    order of _cand_tables(use_deltas), planes' first row being global row
+    row0. Port of cavif_tpu's `_cost_body`.
 
     Shapes with max(bw, bh) <= 32 run the two kernels (nondirectional
     family, then the directional family in the coefficient domain), with
@@ -383,13 +389,14 @@ class ShapeCost(torch.nn.Module):
         shape_consts), e.g. one made by the reference package."""
         return cls(bw, bh, depth, use_deltas, matmul, consts=consts)
 
-    def kernel_inputs(self, planes, dc_q, ac_q, lam, tile_px):
-        """Neighbors and the two kernels' keyword arguments for one frame:
-        (nbrs dict, nd_cost kwargs, dir_cost kwargs); the last is None for
-        the TX_64 family, which has no directional kernel."""
+    def kernel_inputs(self, planes, dc_q, ac_q, lam, tile_px, row0: int = 0):
+        """Neighbors and the two kernels' keyword arguments for one frame
+        whose first row is global row `row0`: (nbrs dict, nd_cost kwargs,
+        dir_cost kwargs); the last is None for the TX_64 family, which has
+        no directional kernel."""
         P = planes.shape[0]
         bw, bh, n2 = self.bw, self.bh, self.n2
-        nb = _nbrs(planes, bw, bh, self.depth, tile_px)
+        nb = _nbrs(planes, bw, bh, self.depth, tile_px, row0)
         R = P * nb["nby"] * nb["nbx"]
         blocks = (
             planes.reshape(P, nb["nby"], bh, nb["nbx"], bw)
@@ -420,9 +427,10 @@ class ShapeCost(torch.nn.Module):
             )
         return nb, nd, dr
 
-    def forward(self, planes, dc_q, ac_q, lam: float, tile_px):
+    def forward(self, planes, dc_q, ac_q, lam: float, tile_px, row0: int = 0):
         P = planes.shape[0]
-        nb, nd, dr = self.kernel_inputs(planes, dc_q, ac_q, lam, tile_px)
+        nb, nd, dr = self.kernel_inputs(planes, dc_q, ac_q, lam, tile_px,
+                                        row0)
         if self.fused:
             costs = [nd_cost(**nd, kt_tiles=self.kt_tiles),
                      dir_cost(**dr, mk_tiles=self.mk_tiles)]
@@ -500,6 +508,45 @@ def _shape_cost(bw, bh, depth, use_deltas, matmul, device) -> ShapeCost:
     return ShapeCost(bw, bh, depth, use_deltas, matmul).to(device)
 
 
+def _sq_tiers(max_px: int) -> tuple:
+    """The square tiers pass 1 prices: 4-32 px, and 64 when max_px
+    reaches it."""
+    return SQ_TIERS + ((64,) if max_px >= 64 else ())
+
+
+def _shapes(max_px: int) -> list:
+    """Every block shape pass 1 prices: the square tiers, then the
+    rectangles."""
+    return [(s, s) for s in _sq_tiers(max_px)] + list(RECT_SHAPES)
+
+
+def _dp_tiers(min_px: int, max_px: int) -> list:
+    """The square tiers of the partition DP."""
+    return [s for s in _sq_tiers(max_px) if s >= min_px]
+
+
+def _has_uv(P: int, bw: int, bh: int) -> bool:
+    """Whether shape (bw, bh) prices chroma: chroma below 8 px inherits
+    the 8 px square parent's uv choice."""
+    return P > 1 and min(bw, bh) >= 8
+
+
+def program_spec(H: int, W: int, P: int, min_px: int, max_px: int) -> list:
+    """The packed row's layout of a Pass1Program over (H, W) frames:
+    [((bw, bh), name, (nby, nbx)), ...] in the order of the packed row."""
+    spec = []
+    for (bw, bh) in _shapes(max_px):
+        if (bw, bh) == (4, 4):
+            # 4px modes are not fetched; the host re-searches the few
+            # 4px leaves the DP actually picks
+            continue
+        for nm in ["y_md"] + (["uv_md"] if _has_uv(P, bw, bh) else []):
+            spec.append(((bw, bh), nm, (H // bh, W // bw)))
+    for s in _dp_tiers(min_px, max_px)[1:]:
+        spec.append(((s, s), "code", (H // s, W // s)))
+    return spec
+
+
 class Pass1Program(torch.nn.Module):
     """The whole-frame pass-1 for one static config, over a batch of B
     same-shaped frames (port of the reference's `_program` and
@@ -507,9 +554,11 @@ class Pass1Program(torch.nn.Module):
 
     key = (H, W, depth, model, P, min_px, max_px, use_deltas,
            ovh_block, ovh_split, rect_ovh)
-    forward(src, dc_q, ac_q, lam, th, tw) with src a batch of B uploads
-    (see _convert_batch) -> packed (B, total) int8 tensor, each row laid
-    out by `self.spec` = [((bw, bh), name, (nby, nbx)), ...]."""
+    forward(src, dc_q, ac_q, lam, th, tw, row0=0) with src a batch of B
+    uploads (see _convert_batch) whose first row is global row row0 (a
+    mesh rank's halo'd band; 0 for a whole frame) -> packed (B, total)
+    int8 tensor, each row laid out by `self.spec` =
+    program_spec(H, W, P, min_px, max_px)."""
 
     def __init__(self, key, matmul: str, device):
         super().__init__()
@@ -517,17 +566,15 @@ class Pass1Program(torch.nn.Module):
          ovh_block, ovh_split, rect_ovh) = key
         self.H, self.W, self.depth, self.model, self.P = H, W, depth, model, P
         self.ovh = (ovh_block, ovh_split, rect_ovh)
-        sq_tiers = SQ_TIERS + ((64,) if max_px >= 64 else ())
-        self.dp_tiers = [s for s in sq_tiers if s >= min_px]
-        self.shapes = [(s, s) for s in sq_tiers] + list(RECT_SHAPES)
+        self.dp_tiers = _dp_tiers(min_px, max_px)
+        self.shapes = _shapes(max_px)
         self.costs = torch.nn.ModuleDict()
         self.flags = {}
         for (bw, bh) in self.shapes:
             # angle deltas are codeable only for blocks >= 8x8, and the 64
             # tier skips them (its leaves are overwhelmingly smooth)
             ud = bool(use_deltas) and min(bw, bh) >= 8 and max(bw, bh) < 64
-            # chroma below 8 px inherits the 8px square parent's uv choice
-            uv = P > 1 and min(bw, bh) >= 8
+            uv = _has_uv(P, bw, bh)
             self.costs[f"{bw}x{bh}"] = _shape_cost(
                 bw, bh, depth, ud, matmul, device)
             mi, dv, _ = _cand_tables(ud)
@@ -536,21 +583,10 @@ class Pass1Program(torch.nn.Module):
             self.register_buffer(
                 f"md_{bw}x{bh}", torch.from_numpy(md).to(device))
             self.flags[(bw, bh)] = (ud, uv)
+        self.spec = program_spec(H, W, P, min_px, max_px)
 
-        spec = []
-        for (bw, bh) in self.shapes:
-            if (bw, bh) == (4, 4):
-                # 4px modes are not fetched; the host re-searches the few
-                # 4px leaves the DP actually picks
-                continue
-            uv = self.flags[(bw, bh)][1]
-            for nm in ["y_md"] + (["uv_md"] if uv else []):
-                spec.append(((bw, bh), nm, (H // bh, W // bw)))
-        for s in self.dp_tiers[1:]:
-            spec.append(((s, s), "code", (H // s, W // s)))
-        self.spec = spec
-
-    def forward(self, src, dc_q, ac_q, lam: float, th: int, tw: int):
+    def forward(self, src, dc_q, ac_q, lam: float, th: int, tw: int,
+                row0: int = 0):
         B = src.shape[0]
         planes = _convert_batch(src, self.model, self.depth)
         P = self.P
@@ -562,7 +598,7 @@ class Pass1Program(torch.nn.Module):
             md = getattr(self, f"md_{bw}x{bh}")
             emit = (bw, bh) != (4, 4)
             costs = self.costs[f"{bw}x{bh}"](planes, dc_q, ac_q, lam,
-                                             (th, tw))
+                                             (th, tw), row0)
             costs = costs.view(B, P, *costs.shape[1:])
             y = costs[:, 0]
             if emit:
@@ -754,38 +790,71 @@ def run_pass1_batch(
     call per sub-batch, so each kernel launches once per block shape for
     the whole sub-batch. Returns a list of B per-image grid dicts in
     run_pass1's format. `device` as in run_pass1 (bf16 matmul inputs on
-    the card, f32 on the CPU); a mesh is not supported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_pass1_batch does not shard over a mesh yet")
+    the card, f32 on the CPU).
+
+    With a mesh (a DeviceMesh over "data" and/or "tile",
+    parallel/mesh.py), every rank passes the whole batch; the sub-batch
+    size is rounded to the data axis, and each rank runs the program, K1
+    and K2 included, on its images over its band of 64 px superblock rows
+    with one superblock row of halo, crops the grids to the band and
+    gathers: every rank returns all B grid dicts. H must be divisible by
+    the tile axis (ValueError), as the reference's sharding requires."""
     if model not in ("ycbcr", "mono"):
         raise ValueError(f"run_pass1_batch: model {model!r}")
     device = resolve_device(device)
+    ax = None if mesh is None else shard.axes(mesh)
     kw = dict(depth=depth, tile_px=tile_px, min_px=min_px, max_px=max_px,
               use_deltas=use_deltas, dc_q=dc_q, ac_q=ac_q, lam=lam,
               ovh_block=ovh_block, ovh_split=ovh_split, rect_ovh=rect_ovh,
-              model=model, device=device)
+              model=model, mesh=mesh, device=device)
     B, H, W = srcs.shape[:3]
     # the reference's pixel budget per program call: larger batches run
-    # as sub-batches of at most max_b images
+    # as sub-batches of at most max_b images (a multiple of the data axis)
     budget = int(os.environ.get("CAVIF_TPU_BATCH_PX", 4_200_000))
     max_b = max(1, budget // (H * W))
+    if ax is not None:
+        max_b = max(ax.data, max_b // ax.data * ax.data)
     if B > max_b:
         out = []
         for i in range(0, B, max_b):
             out.extend(run_pass1_batch(srcs[i : i + max_b], **kw))
         return out
     P = 1 if model == "mono" else 3
+    mm = "f32" if device == "cpu" else "bf16"
+    args = (_f32(dc_q), _f32(ac_q), _f32(lam), int(tile_px[0]),
+            int(tile_px[1]))
     key = (
         H, W, depth, model, P,
         int(min_px), int(max_px), bool(use_deltas),
         float(ovh_block), float(ovh_split), float(rect_ovh),
     )
-    prog = _program(key, "f32" if device == "cpu" else "bf16", device)
+    if ax is None:
+        prog = _program(key, mm, device)
+        with torch.inference_mode():
+            x = torch.from_numpy(np.ascontiguousarray(srcs)).to(device)
+            packed = prog(x, *args).cpu().numpy()
+        return [_unpack(prog.spec, packed[b]) for b in range(B)]
+
+    if H % SB or W % SB:
+        raise ValueError(f"run_pass1_batch: {H}x{W} frames are not padded "
+                         f"to {SB} px")
+    shard.check_divisible("H", H, ax.tile, "tile")
+    spec = program_spec(H, W, P, min_px, max_px)
+
+    def band(b0, b1, h0, h1):
+        prog = _program((h1 - h0, W) + key[2:], mm, device)
+        x = torch.from_numpy(np.ascontiguousarray(srcs[b0:b1, h0:h1]))
+        packed = prog(x.to(device), *args, row0=h0)
+        grids, off = [], 0
+        for (_, _, (nby, nbx)) in prog.spec:
+            grids.append(packed[:, off : off + nby * nbx]
+                         .reshape(b1 - b0, nby, nbx))
+            off += nby * nbx
+        return grids
+
     with torch.inference_mode():
-        x = torch.from_numpy(np.ascontiguousarray(srcs)).to(device)
-        packed = prog(
-            x, _f32(dc_q), _f32(ac_q), _f32(lam),
-            int(tile_px[0]), int(tile_px[1]),
-        ).cpu().numpy()
-    return [_unpack(prog.spec, packed[b]) for b in range(B)]
+        grids = shard.run_sharded(
+            ax, B, H, SB, [(bh, (nbx,), np.int8)
+                           for ((_, bh), _, (_, nbx)) in spec], band)
+    return [{(shape, name): g[b] for g, (shape, name, _) in zip(grids, spec)}
+            for b in range(B)]

@@ -5,8 +5,10 @@ over files -> encode_batch thread pool (or the hybrid card + host
 scheduler); rayon::join color/alpha -> two stream threads in pipeline.py;
 rav1e tile threads -> parallel native tile encodes (av1/encoder.py); a
 batch of same-shaped images -> batched device programs
-(encode_batch_sharded, plane_mode_search_batch). Device meshes are not
-ported yet.
+(encode_batch_sharded, plane_mode_search_batch); a (data = images,
+tile = block rows) mesh of torch.distributed ranks -> GSPMD's shardings
+(parallel/mesh.py: each rank computes its images over its band of
+superblock rows plus a halo, and an all_gather replicates the result).
 """
 
 from .batch import BatchResult, encode_batch, plane_mode_search_batch

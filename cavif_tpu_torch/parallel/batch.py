@@ -17,8 +17,10 @@ failure isolation. Here:
   batches (ops/block_search.py, kernel K3 on the card).
 
 The device is the card ("cuda") unless the encoder or the caller names
-"cpu"; nothing swaps the card for the CPU. Meshes (multi-card or
-multi-process sharding) are not supported yet.
+"cpu"; nothing swaps the card for the CPU. The last two take a mesh (a
+torch.distributed DeviceMesh over "data" = images and "tile" = block rows,
+parallel/mesh.py): every rank passes the whole batch, computes its share
+and gets every result back.
 """
 
 from __future__ import annotations
@@ -243,13 +245,20 @@ def encode_batch_sharded(
     Returns AVIF bytes per image, input order.
 
     The device is the encoder's (`Encoder.device`; None is the card,
-    "cuda"; "cpu" runs the same programs on the CPU). A mesh raises
-    NotImplementedError: multi-card sharding is not ported yet.
+    "cuda"; "cpu" runs the same programs on the CPU).
 
-    Determinism: runs default to HOST-CORE STEALING: idle workers take
-    whole images onto the host cascade while device chunks stream, which
-    is timing-dependent — stolen images carry host-path decisions, so
-    bytes may differ run-to-run. Set CAVIF_TPU_SHARDED_STEAL=0 for
+    With a mesh (a DeviceMesh over "data" and/or "tile", parallel/mesh.py)
+    every rank of it calls this with the same images: each chunk's pass 1
+    is sharded over the mesh (run_pass1_batch(mesh=)), chunk sizes are
+    multiples of the data axis, chunks run in one fixed serial order so
+    that every rank issues the same collectives, host stealing is off,
+    and every rank holds every grid, serializes every image and returns
+    the same list of bytes.
+
+    Determinism: meshless runs default to HOST-CORE STEALING: idle workers
+    take whole images onto the host cascade while device chunks stream,
+    which is timing-dependent — stolen images carry host-path decisions,
+    so bytes may differ run-to-run. Set CAVIF_TPU_SHARDED_STEAL=0 for
     reproducible output.
     """
     from .. import Encoder
@@ -259,10 +268,9 @@ def encode_batch_sharded(
     from ..ops import colorspace
     from ..ops.device_pass1 import run_pass1_batch
     from ..pipeline import _finish, _matrix_coefficients
+    from .mesh import axes
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "encode_batch_sharded does not shard over a mesh yet")
+    data_n = 1 if mesh is None else axes(mesh).data
     enc = encoder if encoder is not None else Encoder.new()
     if not len(images):
         return []
@@ -326,10 +334,12 @@ def encode_batch_sharded(
         h0, w0 = prepped[members[0]][0].shape[:2]
         cfg, g = cfgs[(h0, w0, kind)]
         # chunk to the sub-batch size run_pass1_batch would use (its
-        # pixel budget); chunks run 2-deep through a tiny pool so the
-        # next chunk's upload hides behind the current chunk's compute
+        # pixel budget, a multiple of the data axis); chunks run 2-deep
+        # through a tiny pool so the next chunk's upload hides behind the
+        # current chunk's compute
         budget = int(os.environ.get("CAVIF_TPU_BATCH_PX", 4_200_000))
         max_b = max(1, budget // (bh_ * bw_))
+        max_b = max(data_n, max_b // data_n * data_n)
         pos = [0]  # next unconsidered member index (lock-guarded)
 
         def next_chunk():
@@ -363,7 +373,7 @@ def encode_batch_sharded(
                 dc_q=g.dc_q, ac_q=g.ac_q, lam=g.lam,
                 ovh_block=FrameEncoder.DEV_OVH_BLOCK,
                 model="ycbcr" if kind == "color" else "mono",
-                device=device,
+                mesh=mesh, device=device,
             )
             # chunk keys are disjoint, but two dev_ex threads write
             # grids_by concurrently — take the same lock emit's
@@ -373,6 +383,11 @@ def encode_batch_sharded(
                     grids_by[(i, kind)] = gr
             emit(chunk)
 
+        if mesh is not None:
+            # every rank issues the same collectives in the same order
+            while chunk := next_chunk():
+                one_chunk(chunk)
+            return
         # the first chunk runs alone, so the bucket's constant tables and
         # kernel libraries are built once before two threads ask for them
         chunk = next_chunk()
@@ -428,6 +443,7 @@ def encode_batch_sharded(
     # the host cascade — instead of waiting for their grids. Stolen
     # images drop out of later chunks (next_chunk checks), and a
     # device-sized tail is never stolen (the card finishes it faster).
+    # Stealing is off under a mesh, so that its chunks are reproducible.
     import threading
     from dataclasses import replace
 
@@ -442,7 +458,8 @@ def encode_batch_sharded(
     claimed = set()
     stolen = set()
     steal_on = (
-        os.environ.get("CAVIF_TPU_SHARDED_STEAL", "1") != "0"
+        mesh is None
+        and os.environ.get("CAVIF_TPU_SHARDED_STEAL", "1") != "0"
         and len(prepped) > 4 * workers
     )
     host_enc = replace(enc, device="off").with_num_threads(1)
@@ -511,11 +528,10 @@ def plane_mode_search_batch(
     """Device-side batched mode search (13 candidates, 32x32 blocks) over a
     batch of same-shaped planes: ops/block_search.plane_mode_search, which
     runs kernel K3 on the card. planes: (N, H, W) int32 with H, W
-    multiples of 32. A mesh raises NotImplementedError."""
+    multiples of 32. With a mesh, each rank searches its planes over its
+    band of 32 px rows and every rank returns the whole result (H
+    divisible by the tile axis)."""
     from ..ops.block_search import plane_mode_search
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "plane_mode_search_batch does not shard over a mesh yet")
     return plane_mode_search(planes, dc_q, ac_q, lam, bit_depth, n=32,
-                             device=device)
+                             device=device, mesh=mesh)

@@ -86,7 +86,17 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    encode_batch (the hybrid card + host scheduler); the filter chain runs
    once per stream and every AVIF equals the same batch's with the chain
    off;
-8. pass 2's device reconstruction (ops/device_pass2.py on device_itx.py
+8. the mesh: four processes on the one card form a (data, tile) = (2, 2)
+   mesh over gloo, then one process a (1, 1) mesh over NCCL; each rank
+   runs run_pass1_batch on the four RGB images, plane_partition_search on
+   the test image's three 10-bit planes and encode_batch_sharded on the
+   five images, with K1/K2/K3 launch counts per call (each > 0 on every
+   rank) and walls beside the meshless ones; all ranks bit-equal, and
+   equal to the meshless run (a pass-1 grid difference from cuBLAS's
+   row-count-dependent f32 product is printed and held below 1e-3 with
+   the colour streams in the envelope); the rows computed per frame (the
+   halo's cost);
+9. pass 2's device reconstruction (ops/device_pass2.py on device_itx.py
    and device_predict.py, plain PyTorch): the uniform and scan entry points
    on the card bit-equal to the host walk of a real 128x128 encode; every
    inverse transform size and DCT/ADST variant bit-equal to the CPU and
@@ -98,9 +108,9 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    the host-clock and CUDA-event ms per call, the host preparation's ms,
    the levels and lanes, and the CUDA kernels and device-busy ms of one
    call; for context the traced encode's tiles_pass1+2 span;
-9. the dirty-alpha cleaner's torch backend on the card bit-equal to numpy
+10. the dirty-alpha cleaner's torch backend on the card bit-equal to numpy
    on a 1024x1024 RGBA image with a transparent region, with times;
-10. one JSON line listing the kernels, the card line, and last the JSON
+11. one JSON line listing the kernels, the card line, and last the JSON
    result line.
 
 Without a CUDA card, or outside a checkout of the repository, it exits
@@ -110,6 +120,7 @@ chiprun_out/chip_smoke_build.txt.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -140,6 +151,10 @@ PASS2_SIZE, PASS2_N, PASS2_DQ, PASS2_AQ = 1024, 16, 499, 616
 ITX_SIZES = ((4, 4), (8, 8), (16, 16), (32, 32), (64, 64), (8, 4), (4, 8),
              (16, 8), (8, 16), (32, 16), (16, 32))
 PRED_SIZES = ((8, 8), (16, 16), (32, 32), (16, 8), (8, 16))
+# the [mesh] phase: (data, tile) of its four gloo ranks on the one card,
+# and the seconds its worker processes may take, per group
+MESH_SHAPE = (2, 2)
+MESH_TIMEOUT = 420
 REPLACES = {
     "dir_cost": "cavif_tpu/ops/device_pass1.py:594",  # _fused_dir_cost
     "nd_cost": "cavif_tpu/ops/device_pass1.py:475",   # _fused_nd_cost
@@ -1039,14 +1054,39 @@ def phase_proto(torch, prk, pk, dp, dir_proto, dir_ablation, inputs, peaks):
     return rows, launches
 
 
-def phase_block_search(torch, sk, bs, geo, img):
-    """The block-search entry points at full size on the card, with K3's
-    launch count read around each; then 256x256 card vs CPU."""
+def _frame_geometry():
+    """The AV1Config and frame geometry of the SIZE x SIZE Q80 speed-4
+    test frame."""
+    from cavif_tpu_torch.av1.config import AV1Config
+    from cavif_tpu_torch.av1.encoder import frame_geometry
+    from cavif_tpu_torch.av1.speed import SpeedTweaks
+    from cavif_tpu_torch.ops.quality import quality_to_quantizer
+
+    q = quality_to_quantizer(float(QUALITY))
+    cfg = AV1Config(width=SIZE, height=SIZE, bit_depth=10, quantizer=q,
+                    tweaks=SpeedTweaks.from_preset(SPEED, q),
+                    chroma_sampling="444", full_range=True,
+                    matrix_coefficients=6)
+    geo = frame_geometry(cfg)
+    geo.depth = 10
+    return cfg, geo
+
+
+def _search_planes(img, geo):
+    """The three 10-bit YCbCr planes of img and the partition search's
+    (dc_q, ac_q, lam, bit depth)."""
     from cavif_tpu_torch.ops import colorspace
 
     planes = np.ascontiguousarray(
         colorspace.rgb_to_ycbcr_host(img, depth=10).transpose(2, 0, 1))
-    args = (geo.dc_q, geo.ac_q, geo.lam, 10)
+    return planes, (geo.dc_q, geo.ac_q, geo.lam, 10)
+
+
+def phase_block_search(torch, sk, bs, geo, img):
+    """The block-search entry points at full size on the card, with K3's
+    launch count read around each; then 256x256 card vs CPU. Returns the
+    partition search's K3 launches, its (tiers, codes) and wall."""
+    planes, args = _search_planes(img, geo)
     sk.reset_launches()
     t0 = time.perf_counter()
     tiers, codes = bs.plane_partition_search(planes, *args, min_n=8,
@@ -1082,7 +1122,7 @@ def phase_block_search(torch, sk, bs, geo, img):
     tp, cp = bs.plane_partition_search(small, *args, device="cpu")
     _hold_search(torch, sk, bs, torch.from_numpy(small), args, (tc, cc),
                  (tp, cp), "256x256 card vs CPU")
-    return part
+    return part, (tiers, codes), wall
 
 
 def _hold_search(torch, sk, bs, x, args, got, ref, what):
@@ -1114,35 +1154,105 @@ def _hold_search(torch, sk, bs, x, args, got, ref, what):
             raise AssertionError(f"{what}, tier {n}: the searches disagree")
 
 
-def phase_batch(torch, pk, dp, img0):
-    """encode_batch_sharded on four RGB images and one RGBA image at
-    1024x1024, then the colour streams against the host cascade."""
-    from dataclasses import replace as dc_replace
-
-    from cavif_tpu_torch import Encoder
-    from cavif_tpu_torch.av1.config import AV1Config
-    from cavif_tpu_torch.av1.encoder import FrameEncoder, frame_geometry
-    from cavif_tpu_torch.av1.speed import SpeedTweaks
-    from cavif_tpu_torch.container.parse import read_avif
-    from cavif_tpu_torch.ops import colorspace
-    from cavif_tpu_torch.ops import device_filters as df
-    from cavif_tpu_torch.ops.quality import quality_to_quantizer
-    from cavif_tpu_torch.parallel import batch as pbatch
-
-    os.environ["CAVIF_TPU_SHARDED_STEAL"] = "0"
+def _batch_images(img0):
+    """The batch phases' images: img0 and three more RGB test images, and
+    one RGBA image with an alpha ramp, all SIZE x SIZE."""
     rgbs = [img0] + [_test_image(SIZE, SIZE, s) for s in (43, 44, 45)]
     yy, xx = np.mgrid[0:SIZE, 0:SIZE]
     alpha = np.clip((xx + yy) * 255 // (2 * SIZE - 2), 0, 255).astype(
         np.uint8)
-    imgs = rgbs + [np.dstack([_test_image(SIZE, SIZE, 46), alpha])]
-    enc = Encoder.new().with_quality(QUALITY).with_speed(SPEED)
+    return rgbs + [np.dstack([_test_image(SIZE, SIZE, 46), alpha])]
 
-    calls = []  # batch sizes of run_pass1_batch calls
+
+def _colour_cfg(enc):
+    """The AV1Config of a SIZE x SIZE colour stream of enc on the card,
+    and run_pass1_batch's keywords for it (as encode_batch_sharded calls
+    it)."""
+    from cavif_tpu_torch.av1.config import AV1Config
+    from cavif_tpu_torch.av1.encoder import FrameEncoder, frame_geometry
+    from cavif_tpu_torch.av1.speed import SpeedTweaks
+    from cavif_tpu_torch.ops.quality import quality_to_quantizer
+
+    q = quality_to_quantizer(float(QUALITY))
+    cfg = AV1Config(width=SIZE, height=SIZE, bit_depth=10, quantizer=q,
+                    tweaks=SpeedTweaks.from_preset(SPEED, q),
+                    chroma_sampling="444", full_range=True,
+                    matrix_coefficients=6, threads=1, tune=enc.tune,
+                    device="cuda")
+    g = frame_geometry(cfg)
+    kw = dict(depth=10, tile_px=(g.th, g.tw), min_px=g.min_leaf_mi * 4,
+              max_px=g.max_leaf_mi * 4,
+              use_deltas=cfg.tweaks.fine_directional_intra, dc_q=g.dc_q,
+              ac_q=g.ac_q, lam=g.lam, ovh_block=FrameEncoder.DEV_OVH_BLOCK,
+              model="ycbcr", device="cuda")
+    return cfg, kw
+
+
+def _colour_envelope(items, cfg, avifs=None, what="batch"):
+    """Each (index, rgb, pass-1 grids) item's colour stream encoded on its
+    grids (the frame of avifs[index] when avifs are given, byte for
+    byte), inside the host cascade's envelope: bytes at most 1.05x, PSNR
+    at least the host's minus 0.1 dB."""
+    from dataclasses import replace as dc_replace
+
+    from cavif_tpu_torch.av1.encoder import FrameEncoder
+    from cavif_tpu_torch.container.parse import read_avif
+    from cavif_tpu_torch.ops import colorspace
+
+    for i, rgb, grids in items:
+        planes = colorspace.rgb_to_ycbcr_host(rgb, depth=10)
+        ref_planes = [planes[..., p] for p in range(3)]
+        fe = FrameEncoder(planes, cfg, src8=rgb)
+        # "inject" names no device, so these frames take the host C++
+        # filters: the batched AVIFs (chain on) are held against them too
+        fe._device_search = "inject"
+        fe._dev_state = (grids, fe._dev_part_dict(grids))
+        data = fe.encode()
+        if avifs is not None and data != read_avif(avifs[i]).primary_item:
+            raise AssertionError(f"image {i}: colour frame differs from the "
+                                 "batched AVIF's")
+        cp = _psnr(ref_planes, list(fe._recon_full()), SIZE, SIZE, 10)
+        host = FrameEncoder(planes, dc_replace(cfg, device="off"), src8=rgb)
+        hdata = host.encode()
+        hp = _psnr(ref_planes, list(host._recon_full()), SIZE, SIZE, 10)
+        print(f"[{what}] image {i} colour: card {len(data)} B {cp:.4f} dB, "
+              f"host {len(hdata)} B {hp:.4f} dB")
+        if len(data) > 1.05 * len(hdata) or cp < hp - 0.1:
+            raise AssertionError(f"{what} image {i} outside the envelope")
+
+
+@contextlib.contextmanager
+def _pass1_calls(dp):
+    """dp.run_pass1_batch wrapped for the block: yields the list of its
+    calls' (model, grid dicts, srcs, keywords), in call order."""
+    calls = []
     real = dp.run_pass1_batch
 
-    def counted(srcs, **kw):
-        calls.append(int(srcs.shape[0]))
-        return real(srcs, **kw)
+    def recorded(srcs, **kw):
+        grids = real(srcs, **kw)
+        calls.append((kw.get("model", "ycbcr"), grids, srcs, kw))
+        return grids
+
+    dp.run_pass1_batch = recorded
+    try:
+        yield calls
+    finally:
+        dp.run_pass1_batch = real
+
+
+def phase_batch(torch, pk, dp, img0):
+    """encode_batch_sharded on four RGB images and one RGBA image at
+    1024x1024, then the colour streams against the host cascade. Returns
+    the walls, the AVIFs and the meshless grids of the four RGB images."""
+    from cavif_tpu_torch import Encoder
+    from cavif_tpu_torch.container.parse import read_avif
+    from cavif_tpu_torch.ops import device_filters as df
+    from cavif_tpu_torch.parallel import batch as pbatch
+
+    os.environ["CAVIF_TPU_SHARDED_STEAL"] = "0"
+    imgs = _batch_images(img0)
+    rgbs = imgs[:4]
+    enc = Encoder.new().with_quality(QUALITY).with_speed(SPEED)
 
     chains = []  # run_filter_chain calls (True: the chain ran)
     real_chain = df.run_filter_chain
@@ -1152,26 +1262,25 @@ def phase_batch(torch, pk, dp, img0):
         chains.append(res is not None)
         return res
 
-    dp.run_pass1_batch = counted
     df.run_filter_chain = counted_chain
     try:
         t0 = time.perf_counter()
         pbatch.encode_batch_sharded(imgs, enc)
         warm = time.perf_counter() - t0
-        calls.clear()
         chains.clear()
         pk.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = pbatch.encode_batch_sharded(imgs, enc)
+        with _pass1_calls(dp) as pass1_calls:
+            out = pbatch.encode_batch_sharded(imgs, enc)
         wall = time.perf_counter() - t0
         launches = dict(pk.LAUNCHES)
         n_chains = len(chains)
         if not chains or not all(chains):
             raise AssertionError(f"batch: filter chain calls {chains}")
     finally:
-        dp.run_pass1_batch = real
         df.run_filter_chain = real_chain
+    calls = [len(c[1]) for c in pass1_calls]  # batch sizes
     # the same batch with the chain off: every AVIF byte for byte
     os.environ["CAVIF_TPU_DEVICE_FILTERS"] = "0"
     try:
@@ -1223,41 +1332,360 @@ def phase_batch(torch, pk, dp, img0):
     # the four colour streams: the sharded path's first colour chunk
     # again (same call, same grids), its frames must be the ones in the
     # AVIFs, and each stays inside the host cascade's envelope
-    q = quality_to_quantizer(float(QUALITY))
-    cfg = AV1Config(width=SIZE, height=SIZE, bit_depth=10, quantizer=q,
-                    tweaks=SpeedTweaks.from_preset(SPEED, q),
-                    chroma_sampling="444", full_range=True,
-                    matrix_coefficients=6, threads=1, tune=enc.tune,
-                    device="cuda")
-    g = frame_geometry(cfg)
-    grids = dp.run_pass1_batch(
-        np.stack(rgbs), depth=10, tile_px=(g.th, g.tw),
-        min_px=g.min_leaf_mi * 4, max_px=g.max_leaf_mi * 4,
-        use_deltas=cfg.tweaks.fine_directional_intra, dc_q=g.dc_q,
-        ac_q=g.ac_q, lam=g.lam, ovh_block=FrameEncoder.DEV_OVH_BLOCK,
-        model="ycbcr", device="cuda")
-    for i, rgb in enumerate(rgbs):
-        planes = colorspace.rgb_to_ycbcr_host(rgb, depth=10)
-        ref_planes = [planes[..., p] for p in range(3)]
-        fe = FrameEncoder(planes, cfg, src8=rgb)
-        # "inject" names no device, so these frames take the host C++
-        # filters: the batched AVIFs (chain on) are held against them too
-        fe._device_search = "inject"
-        fe._dev_state = (grids[i], fe._dev_part_dict(grids[i]))
-        data = fe.encode()
-        if data != read_avif(out[i]).primary_item:
-            raise AssertionError(f"image {i}: colour frame differs from the "
-                                 "batched AVIF's")
-        cp = _psnr(ref_planes, list(fe._recon_full()), SIZE, SIZE, 10)
-        host = FrameEncoder(planes, dc_replace(cfg, device="off"), src8=rgb)
-        hdata = host.encode()
-        hp = _psnr(ref_planes, list(host._recon_full()), SIZE, SIZE, 10)
-        print(f"[batch] image {i} colour: card {len(data)} B {cp:.4f} dB, "
-              f"host {len(hdata)} B {hp:.4f} dB")
-        if len(data) > 1.05 * len(hdata) or cp < hp - 0.1:
-            raise AssertionError(f"batched image {i} outside the envelope")
+    cfg, kw = _colour_cfg(enc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grids = dp.run_pass1_batch(np.stack(rgbs), **kw)
+    pass1_wall = time.perf_counter() - t0
+    _colour_envelope([(i, rgb, grids[i]) for i, rgb in enumerate(rgbs)], cfg,
+                     out)
     return dict(wall=wall, mp_s=mp / wall, calls=calls, launches=launches,
-                sequential_s=seq, encode_batch_s=hyb)
+                sequential_s=seq, encode_batch_s=hyb, avifs=out,
+                encode_grids=pass1_calls, grids=grids,
+                pass1_wall=pass1_wall)
+
+
+def _mesh_arrays(pass1, search, avifs, encode_calls) -> dict:
+    """The mesh phase's results as {name: array}: run_pass1_batch's grid
+    dicts ("pass1"), plane_partition_search's (tiers, codes) ("search"),
+    the AVIF bytes ("encode") and the grid dicts of each pass-1 call inside
+    the batched encode ("call<c>-<model>")."""
+    out = {}
+    parts = [("pass1", pass1)] + [(f"call{c}-{call[0]}", call[1])
+                                  for c, call in enumerate(encode_calls)]
+    for part, grid_dicts in parts:
+        for b, g in enumerate(grid_dicts):
+            for ((bw, bh), name), v in g.items():
+                out[f"{part}/{b}/{bw}x{bh}/{name}"] = v
+    tiers, codes = search
+    for n, (m, c) in tiers.items():
+        out[f"search/modes{n}"] = m
+        out[f"search/costs{n}"] = c
+    for n, c in codes.items():
+        out[f"search/codes{n}"] = c
+    for i, data in enumerate(avifs):
+        out[f"encode/avif{i}"] = np.frombuffer(data, np.uint8)
+    return out
+
+
+def _grid_dicts(arrays: dict, part: str) -> list:
+    """The grid dicts of one part of _mesh_arrays' output."""
+    out = {}
+    for k, v in arrays.items():
+        if k.startswith(part + "/"):
+            _, b, shp, name = k.split("/")
+            bw, bh = (int(t) for t in shp.split("x"))
+            out.setdefault(int(b), {})[((bw, bh), name)] = v
+    return [out[b] for b in sorted(out)]
+
+
+def _digest(arrays: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(arrays):
+        v = np.ascontiguousarray(arrays[k])
+        h.update(f"{k}:{v.dtype}:{v.shape}".encode())
+        h.update(v.tobytes())
+    return h.hexdigest()[:16]
+
+
+def mesh_worker(rank: int, world: int, port: int, backend: str,
+                shape: tuple, out_dir: str) -> int:
+    """One rank of the [mesh] phase on card 0: the process group on
+    localhost, a (data, tile) DeviceMesh of `shape` (gloo: collectives on
+    the CPU; nccl: on the card), then run_pass1_batch on the four RGB
+    images, plane_partition_search on the test image's three 10-bit planes
+    and encode_batch_sharded on the five images, each once to warm up and
+    once timed with the kernels' launch counts set to 0 just before and
+    read just after. Prints one "MESH {json}" line; rank 0 writes its
+    arrays to out_dir."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    sys.path.insert(0, ROOT)
+    from cavif_tpu_torch import Encoder
+    from cavif_tpu_torch.ops import attachment
+    from cavif_tpu_torch.ops import block_search as bs
+    from cavif_tpu_torch.ops import device_pass1 as dp
+    from cavif_tpu_torch.ops import pass1_kernels as pk
+    from cavif_tpu_torch.ops import search_kernels as sk
+    from cavif_tpu_torch.parallel import batch as pbatch
+
+    os.environ["CAVIF_TPU_SHARDED_STEAL"] = "0"
+    torch.cuda.set_device(0)
+    dp.resolve_device("cuda")
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank,
+                            timeout=timedelta(seconds=MESH_TIMEOUT))
+    try:
+        mesh = init_device_mesh("cpu" if backend == "gloo" else "cuda",
+                                shape, mesh_dim_names=("data", "tile"))
+        _, geo = _frame_geometry()
+        imgs = _batch_images(_test_image(SIZE, SIZE))
+        planes, args = _search_planes(imgs[0], geo)
+        enc = Encoder.new().with_quality(QUALITY).with_speed(SPEED)
+        _, kw = _colour_cfg(enc)
+        calls = dict(
+            pass1=lambda: dp.run_pass1_batch(np.stack(imgs[:4]), mesh=mesh,
+                                             **kw),
+            search=lambda: bs.plane_partition_search(
+                planes, *args, min_n=8, max_n=32, mesh=mesh),
+            encode=lambda: pbatch.encode_batch_sharded(imgs, enc, mesh=mesh),
+        )
+        report = dict(rank=rank, backend=backend,
+                      coord=list(mesh.get_coordinate()))
+        res = {}
+        for name, fn in calls.items():
+            fn()
+            torch.cuda.synchronize()
+            dist.barrier()
+            pk.reset_launches()
+            sk.reset_launches()
+            t0 = time.perf_counter()
+            with _pass1_calls(dp) as pass1_calls:
+                res[name] = fn()
+            torch.cuda.synchronize()
+            report[name] = dict(wall=time.perf_counter() - t0,
+                                launches={**pk.LAUNCHES, **sk.LAUNCHES})
+        arrays = _mesh_arrays(res["pass1"], res["search"], res["encode"],
+                              pass1_calls)
+        report["digest"] = _digest(arrays)
+        # the filter chain's gate is this process's probe of the card
+        report["probe_ms"] = attachment.probe()["rtt_ms"]
+        report["chain"] = attachment.engage_device_filters()
+        if rank == 0:
+            np.savez(os.path.join(out_dir, "arrays.npz"), **arrays)
+        print("MESH " + json.dumps(report), flush=True)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _mesh_group(world: int, backend: str, shape: tuple, out_dir: str):
+    """Start `world` mesh_worker processes on a free localhost port and
+    wait for all of them (MESH_TIMEOUT s in all); a worker that fails or
+    times out fails the phase, and every worker is stopped. Returns each
+    rank's report."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-worker",
+         json.dumps([r, world, port, backend, list(shape), out_dir])],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    deadline = time.time() + MESH_TIMEOUT
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0,
+                                                  deadline - time.time())))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    reports = []
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith("MESH ")]
+        if p.returncode != 0 or len(lines) != 1:
+            with open(os.path.join(OUT_DIR, f"mesh_{backend}_rank{r}.txt"),
+                      "w") as f:
+                f.write(out + "\n" + err)
+            raise AssertionError(f"[mesh] {backend} rank {r} exited "
+                                 f"{p.returncode}: {err[-2000:]}")
+        reports.append(json.loads(lines[0][5:]))
+    return reports
+
+
+def phase_mesh(torch, smi, img0, geo, batch, search, search_wall):
+    """The (data, tile) mesh on card 0: four gloo ranks as a (2, 2) mesh,
+    then one NCCL rank as a (1, 1) mesh (mesh_worker). Every rank must
+    launch K1, K2 and K3 on its shard, the ranks of a group must agree bit
+    for bit, and each group must give the meshless results of [search]
+    and [batch] (the separate pass-1 call, each pass-1 call inside the
+    batched encode, the AVIFs): bit for bit, or else, where cuBLAS's f32
+    product of the blocks by the DCT (ShapeCost's `bkt`) changed with the
+    row count of a band, on fewer than ARGMIN_TOL of each call's grid
+    entries, with the colour stream of every differing AVIF inside the
+    host envelope; the block search has no such product and must be
+    bit-equal."""
+    import tempfile
+
+    from cavif_tpu_torch import Encoder
+    from cavif_tpu_torch.parallel import mesh as shard
+
+    meshless = _mesh_arrays(batch["grids"], search, batch["avifs"],
+                            batch["encode_grids"])
+    walls = dict(pass1=batch["pass1_wall"], search=search_wall,
+                 encode=batch["wall"])
+    data_n, tile_n = MESH_SHAPE
+    for what, unit in (("pass 1", 64), ("block search", 32)):
+        rows = sum(h1 - h0 for h0, h1 in (
+            shard.halo(b, SIZE, unit) for b in shard.bands(SIZE, unit, tile_n)))
+        print(f"[mesh] {what}: {rows} rows computed per {SIZE}-row frame "
+              f"over tile = {tile_n} ({rows / SIZE:.4f}x; halo {unit} rows)")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        groups = []
+        for world, backend, shape in ((data_n * tile_n, "gloo", MESH_SHAPE),
+                                      (1, "nccl", (1, 1))):
+            reports = _mesh_group(world, backend, shape, tmp)
+            arrays = dict(np.load(os.path.join(tmp, "arrays.npz")))
+            groups.append((backend, shape, reports, arrays))
+    for backend, shape, reports, arrays in groups:
+        what = f"[mesh] {backend} {tuple(shape)}"
+        for r in reports:
+            print(f"{what} rank {r['rank']} at (data, tile) "
+                  f"{tuple(r['coord'])}: " + "; ".join(
+                      f"{k} {r[k]['wall']:.4f} s (meshless {walls[k]:.4f} s)"
+                      f" launches {r[k]['launches']}" for k in walls)
+                  + f"; filter chain {'on' if r['chain'] else 'off'} (probe "
+                  f"{r['probe_ms']} ms); digest {r['digest']}; {smi}")
+            for k, want in (("pass1", ("dir_cost", "nd_cost")),
+                            ("search", ("mode_cost",)),
+                            ("encode", ("dir_cost", "nd_cost"))):
+                if any(r[k]["launches"][n] <= 0 for n in want):
+                    raise AssertionError(f"{what} rank {r['rank']}: {k} "
+                                         f"launched no {want} on its shard")
+        digests = {r["digest"] for r in reports}
+        if len(digests) != 1 or _digest(arrays) not in digests:
+            raise AssertionError(f"{what}: the ranks disagree: "
+                                 f"{sorted(digests)}")
+        if sorted(arrays) != sorted(meshless):
+            raise AssertionError(f"{what}: other results than the meshless "
+                                 "run's")
+        if _digest(arrays) == _digest(meshless):
+            print(f"{what}: every rank bit-equal to the meshless run (pass-1 "
+                  "grids, block search, the batch's pass-1 calls and AVIFs)")
+            continue
+        _mesh_mismatch(backend, shape, arrays, meshless, img0,
+                       batch["encode_grids"])
+
+
+def _bkt_diagnosis(what, call, shape):
+    """For a pass-1 call (model, grids, srcs, keywords) of the meshless
+    batch, each rank's share of `shape` (data, tile) priced as the mesh
+    prices it, against the whole call, per fused block shape: the
+    elements of ShapeCost's inputs (blocks, ext, bkt), costs and argmins
+    that differ on the share's rows."""
+    import torch
+
+    from cavif_tpu_torch.ops import device_pass1 as dp
+    from cavif_tpu_torch.parallel import mesh as shard
+
+    model, _, srcs, kw = call
+    B, H, W = srcs.shape[:3]
+    P = 1 if model == "mono" else 3
+    key = (H, W, kw["depth"], model, P, int(kw["min_px"]), int(kw["max_px"]),
+           bool(kw["use_deltas"]), float(kw["ovh_block"]),
+           float(kw.get("ovh_split", 2.0)), float(kw.get("rect_ovh", 4.0)))
+    args = (dp._f32(kw["dc_q"]), dp._f32(kw["ac_q"]), dp._f32(kw["lam"]),
+            kw["tile_px"])
+    dev = dp.resolve_device(kw["device"])
+    prog = dp._program(key, "f32" if dev == "cpu" else "bf16", dev)
+    with torch.inference_mode():
+        x = torch.from_numpy(np.ascontiguousarray(srcs)).to(dev)
+        planes = dp._convert_batch(x, model, kw["depth"])
+        for (bw, bh) in prog.shapes:
+            sc = prog.costs[f"{bw}x{bh}"]
+            if not sc.fused:
+                continue
+            _, nd0, dr0 = sc.kernel_inputs(planes, *args)
+            c0 = sc(planes, *args)
+            nbx = W // bw
+            diff = dict.fromkeys(("blocks", "ext", "bkt", "costs", "argmin"),
+                                 0)
+            tot = 0
+            for b0, b1 in shard.split(B, shape[0]):
+                for y0, y1 in shard.bands(H, dp.SB, shape[1]):
+                    if b1 == b0 or y1 == y0:
+                        continue
+                    h0, h1 = shard.halo((y0, y1), H, dp.SB)
+                    pb = planes.view(B, P, H, W)[b0:b1, :, h0:h1].reshape(
+                        -1, h1 - h0, W)
+                    _, nd1, dr1 = sc.kernel_inputs(pb, *args, row0=h0)
+                    c1 = sc(pb, *args, row0=h0)
+
+                    def rows(t, nimg, nby, a, b):  # block rows a:b
+                        return t.reshape(nimg * P, nby, nbx, -1)[:, a:b]
+
+                    whole = (B, H // bh, y0 // bh, y1 // bh)
+                    band = (b1 - b0, (h1 - h0) // bh, (y0 - h0) // bh,
+                            (y1 - h0) // bh)
+                    for name, t0, t1 in (
+                            ("blocks", nd0["blocks"], nd1["blocks"]),
+                            ("ext", dr0["ext"], dr1["ext"]),
+                            ("bkt", dr0["bkt"], dr1["bkt"]),
+                            ("costs", c0, c1)):
+                        u = rows(t0, *whole)[b0 * P : b1 * P]
+                        diff[name] += int((u != rows(t1, *band)).sum())
+                    u = rows(c0, *whole)[b0 * P : b1 * P]
+                    v = rows(c1, *band)
+                    diff["argmin"] += int((u.argmin(-1) != v.argmin(-1))
+                                          .sum())
+                    tot += u[..., 0].numel()
+            print(f"{what} diagnosis, {model} B = {B}, {bw}x{bh} over "
+                  f"{tot} blocks: " + ", ".join(
+                      f"{k} differs on {v}" for k, v in diff.items()))
+
+
+def _mesh_mismatch(backend, shape, arrays, meshless, img0, calls):
+    """A mesh run that is not bit-equal to the meshless one: print what
+    differs; hold each part's grids below ARGMIN_TOL of their entries, the
+    block search bit-equal, and every colour stream of a differing AVIF
+    inside the host envelope on the mesh run's own grids."""
+    from cavif_tpu_torch import Encoder
+
+    what = f"[mesh] {backend} {tuple(shape)}"
+    for part in sorted({k.split("/")[0] for k in meshless}):
+        keys = [k for k in meshless if k.startswith(part + "/")]
+        diff = sum(int((arrays[k] != meshless[k]).sum())
+                   if arrays[k].shape == meshless[k].shape
+                   else meshless[k].size for k in keys)
+        tot = sum(meshless[k].size for k in keys)
+        print(f"{what} against the meshless run: {part} differs on {diff} "
+              f"of {tot} entries" + (" (AVIF bytes)" if part == "encode"
+                                     else ""))
+        if part == "search" and diff:
+            raise AssertionError(f"{what}: the block search differs from "
+                                 "the meshless one")
+        if part not in ("search", "encode") and diff >= ARGMIN_TOL * tot:
+            raise AssertionError(f"{what}: {part}'s grids differ on {diff} "
+                                 f"of {tot}")
+        if diff and part.startswith("call"):
+            _bkt_diagnosis(what, calls[int(part[4:].split("-")[0])], shape)
+    # the batch's colour streams: its pass-1 calls of model ycbcr take the
+    # images in order (one bucket), the RGBA image's colour as the encode
+    # prepares it
+    enc = Encoder.new().with_quality(QUALITY).with_speed(SPEED)
+    imgs = _batch_images(img0)
+    calls = sorted((p for p in {k.split("/")[0] for k in arrays}
+                    if p.startswith("call")),
+                   key=lambda p: int(p[4:].split("-")[0]))
+    colour = [g for part in calls if part.endswith("-ycbcr")
+              for g in _grid_dicts(arrays, part)]
+    if len(colour) != len(imgs):
+        raise AssertionError(f"{what}: {len(colour)} colour grids for "
+                             f"{len(imgs)} images")
+    items = []
+    for i, im in enumerate(imgs):
+        a, b = arrays[f"encode/avif{i}"], meshless[f"encode/avif{i}"]
+        if np.array_equal(a, b):
+            continue
+        print(f"{what}: AVIF {i} differs ({a.size} B against {b.size} B)")
+        if im.shape[2] == 4:
+            conv = enc._convert_alpha_8bit(im)
+            im = conv if conv is not None else im
+        items.append((i, np.ascontiguousarray(im[..., :3]), colour[i]))
+    _colour_envelope(items, _colour_cfg(enc)[0], what=f"mesh {backend}")
 
 
 def _same(what, got, ref):
@@ -1462,16 +1890,12 @@ def main() -> int:
               "false)", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from cavif_tpu_torch.av1.config import AV1Config
-    from cavif_tpu_torch.av1.encoder import frame_geometry
-    from cavif_tpu_torch.av1.speed import SpeedTweaks
     from cavif_tpu_torch.ops import block_search as bs
     from cavif_tpu_torch.ops import cuda_build as cb
     from cavif_tpu_torch.ops import device_pass1 as dp
     from cavif_tpu_torch.ops import pass1_kernels as pk
     from cavif_tpu_torch.ops import proto_kernels as prk
     from cavif_tpu_torch.ops import search_kernels as sk
-    from cavif_tpu_torch.ops.quality import quality_to_quantizer
     from cavif_tpu_torch.tools import dir_ablation, dir_proto
 
     dp.resolve_device("cuda")  # also pins TF32 off
@@ -1481,13 +1905,7 @@ def main() -> int:
     phase_build(cb)
 
     img = _test_image(SIZE, SIZE)
-    q = quality_to_quantizer(float(QUALITY))
-    cfg = AV1Config(width=SIZE, height=SIZE, bit_depth=10, quantizer=q,
-                    tweaks=SpeedTweaks.from_preset(SPEED, q),
-                    chroma_sampling="444", full_range=True,
-                    matrix_coefficients=6)
-    geo = frame_geometry(cfg)
-    geo.depth = 10
+    cfg, geo = _frame_geometry()
     with torch.inference_mode():
         planes = dp._convert(torch.from_numpy(img).cuda(), "ycbcr", 10)
         rows = phase_kernels(torch, pk, dp, geo, planes,
@@ -1503,8 +1921,10 @@ def main() -> int:
     launches = phase_encode(torch, pk, img)
     phase_quality(img)
     phase_filters(torch, img)
-    launches["mode_cost"] = phase_block_search(torch, sk, bs, geo, img)
-    phase_batch(torch, pk, dp, img)
+    launches["mode_cost"], search, search_wall = phase_block_search(
+        torch, sk, bs, geo, img)
+    batch = phase_batch(torch, pk, dp, img)
+    phase_mesh(torch, smi, img, geo, batch, search, search_wall)
     phase_pass2(torch, img)
     phase_dirtyalpha(torch, img)
     launches.update(proto_launches)
@@ -1548,4 +1968,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        r, world, port, backend, shape, out_dir = json.loads(sys.argv[2])
+        sys.exit(mesh_worker(r, world, port, backend, tuple(shape), out_dir))
     sys.exit(main())

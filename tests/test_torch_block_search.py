@@ -294,7 +294,7 @@ def test_plain_backend_and_wrapper_on_cpu(monkeypatch):
 
 def test_search_refuses_what_it_does_not_support():
     planes = _planes(64, 64, 2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         bs.plane_partition_search(planes, DC_Q, AC_Q, LAM, 10, mesh=object(),
                                   device="cpu")
     with pytest.raises(ValueError):
