@@ -23,9 +23,13 @@ unchanged. Search policy: rav1e's intra partition/mode RDO as configured
 by cavif (ravif src/av1encoder.rs:649-708).
 
 Numerics. `matmul="bf16"` rounds both inputs of every default-precision
-product to bfloat16 (round to nearest even) and accumulates in f32, as the
-TPU did; `matmul="f32"` keeps f32 inputs, as the reference computes on the
-CPU. The card runs bf16; the CPU tests compare f32 with the reference.
+product of the shapes up to 32 px to bfloat16 (round to nearest even) and
+accumulates in f32, as the TPU did; `matmul="f32"` keeps f32 inputs, as the
+reference computes on the CPU. The card runs bf16; the CPU tests compare
+f32 with the reference. The TX_64 family's products are f32 in both modes:
+in bf16 its tail term (residual energy minus coded-area energy) drowns in
+rounding, and the 64 px tier then wins blocks it should not (the TPU's
+default precision did the same).
 """
 
 from __future__ import annotations
@@ -360,7 +364,9 @@ class ShapeCost(torch.nn.Module):
         self.fused = "mk" in c
         self.gain = float(c["gain"])
         self.ac_bias = float(c["ac_bias"])
-        mm = torch.bfloat16 if matmul == "bf16" else torch.float32
+        # the TX_64 family's products stay f32 (module docstring)
+        mm = (torch.bfloat16 if matmul == "bf16" and self.fused
+              else torch.float32)
 
         def buf(name, arr, dtype=torch.float32):
             self.register_buffer(
@@ -696,6 +702,55 @@ PASS1_HOOKS: "contextvars.ContextVar" = contextvars.ContextVar(
 )
 
 
+# The last single-frame program key and runtime arguments run_pass1 used,
+# for diagnostics: the bench's roofline (tools/bench.py) times the exact
+# program of the last encode with its own quantizers, lambda and tile split
+# rather than a guessed configuration. Port of the reference's LAST_KEY /
+# LAST_ARGS; the key is Pass1Program's, which has no trailing Pallas gate.
+LAST_KEY = None
+LAST_ARGS = None  # (dc_q, ac_q, lam, tile_px)
+
+
+def _fused_shapes(key, batch: int) -> list:
+    """[(bw, bh, R, cdir, E, n2)] of the shapes whose costs K1 and K2 price
+    for a Pass1Program key over `batch` frames (max(bw, bh) <= 32; the 64
+    tier keeps the materialized path)."""
+    H, W, _, _, P, _, max_px, use_deltas = key[:8]
+    out = []
+    for (bw, bh) in _shapes(max_px):
+        if max(bw, bh) > 32:
+            continue
+        ud = bool(use_deltas) and min(bw, bh) >= 8
+        out.append((bw, bh, batch * P * (H // bh) * (W // bw),
+                    len(_dir_cands(ud)), 2 * (bw + bh) + 1, bw * bh))
+    return out
+
+
+def kernel_flops(key, batch: int = 1) -> float:
+    """Useful (logical, unpadded) flops of K1 and K2 for one Pass1Program
+    key over `batch` frames. Port of the reference's `pallas_flops`, with
+    the same count: per shape <= 32 px, the directional product and
+    segment sum 2·R·E·C·n² + R·C·n² (K1), and five DCT products plus the
+    two replication products 5·2·R·n²·n² + 2·R·(bw + bh)·n² (K2). The
+    reference added it to XLA's cost analysis of the whole program; the
+    port has no such analysis, so this covers the two kernels only."""
+    return sum(2.0 * R * E * cdir * n2 + R * cdir * n2
+               + 5 * 2.0 * R * n2 * n2 + 2.0 * R * (bw + bh) * n2
+               for bw, bh, R, cdir, E, n2 in _fused_shapes(key, batch))
+
+
+def kernel_bytes(key, batch: int = 1) -> float:
+    """Bytes K1 and K2 read and write for one Pass1Program key over `batch`
+    frames, each input read once and each output written once: K1 ext
+    (R, E), bkt (R, n²) and its (R, C) costs in f32, MK in bf16 and the
+    lane constants; K2 above, left, sc, blocks and its (R, 5) costs in
+    f32, KT in bf16 and the lane constants."""
+    return sum(4.0 * R * (E + n2 + cdir) + 2.0 * E * cdir * n2 + 16.0 * n2
+               + 4.0 * R * (bw + bh + 2 + n2 + 5) + 2.0 * n2 * n2
+               + 20.0 * n2
+               for bw, bh, R, cdir, E, n2 in _fused_shapes(key, batch))
+
+
 def _unpack(spec, packed: np.ndarray) -> dict:
     """{((bw, bh), name): int8 grid} of one frame's packed row."""
     out = {}
@@ -749,6 +804,10 @@ def run_pass1(
         int(min_px), int(max_px), bool(use_deltas),
         float(ovh_block), float(ovh_split), float(rect_ovh),
     )
+    global LAST_KEY, LAST_ARGS
+    LAST_KEY = key
+    LAST_ARGS = (float(dc_q), float(ac_q), float(lam),
+                 (int(tile_px[0]), int(tile_px[1])))
     prog = _program(key, matmul, device)
     hooks = PASS1_HOOKS.get()
     if hooks is not None:

@@ -1,5 +1,10 @@
-"""Developer harnesses of the port (off the encoder's path):
+"""Measurement drivers and developer harnesses of the port (off the
+encoder's path):
 
+- `bench`, `bench8k`, `batch512_bench`: the repository's measurement
+  drivers (bench.py, tools/bench8k.py, tools/batch512_bench.py) on the
+  card: the 1 MP headline JSON line, the 7680x4320 frame, the 512 mixed
+  images through both batch paths;
 - `dir_proto`: the fused directional-cost kernel K4 against its plain
   version, per tier, tile and reduce mode;
 - `dir_ablation`: the ablation variants of the same kernel (K5);

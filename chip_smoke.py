@@ -110,8 +110,26 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    call; for context the traced encode's tiles_pass1+2 span;
 10. the dirty-alpha cleaner's torch backend on the card bit-equal to numpy
    on a 1024x1024 RGBA image with a transparent region, with times;
-11. one JSON line listing the kernels, the card line, and last the JSON
-   result line.
+11. BASELINE.json's configurations through the port ([configs]): (1)
+   the CLI (python -m cavif_tpu_torch) with its defaults on three 1 MP
+   PNGs at once, each file byte-equal to an in-process encode with the
+   same settings (K1/K2 launches counted); (2) --depth=8 at --quality
+   40, 60, 80, 95; (3) RGBA with and without --dirty-alpha; (4)
+   --color=rgb at --speed 1 (the 64 px tier priced) and 10, the filter
+   chain auto-engaged where the encode searches filters and byte-neutral;
+   every CLI call in its own process, all started together, each output
+   parsed and decoded, each colour stream (its frame equal to the file's
+   colour item) inside the host envelope, or for the gbr model, where the
+   f32 pass 1 on the CPU is itself outside it, inside that stream's; (5a) the 7680x4320 frame (tools/bench8k), cold then
+   warm with the chain on: K1/K2 launched, decoded, inside the envelope,
+   equal to the chain-off colour frame, with wall, MP/s and the card's
+   peak memory; (5b) the first BATCH_N images of tools/batch512_bench
+   through encode_batch and encode_batch_sharded: every AVIF parsed,
+   alpha on every 8th, warm MP/s, the first image of each shape bucket
+   inside the envelope (decoded); then tools/bench's stage split,
+   roofline (its peaks naming the card) and attachment flags;
+12. one JSON line listing the kernels, the card line, and last the JSON
+   result line. Every phase prints its seconds ([time] lines).
 
 Without a CUDA card, or outside a checkout of the repository, it exits
 non-zero and prints no result. Long output (nvcc's ptxas report) goes to
@@ -155,6 +173,14 @@ PRED_SIZES = ((8, 8), (16, 16), (32, 32), (16, 8), (8, 16))
 # and the seconds its worker processes may take, per group
 MESH_SHAPE = (2, 2)
 MESH_TIMEOUT = 420
+# the [configs] phase (BASELINE.json's configurations): the CLI's
+# qualities at 8 bits, its speeds with --color=rgb, the mixed batch's
+# length (the first images of tools/batch512_bench), and the seconds each
+# CLI process may take
+CONFIG_QUALITIES = (40, 60, 80, 95)
+CONFIG_SPEEDS = (1, 10)
+BATCH_N = 64
+CLI_TIMEOUT = 600
 REPLACES = {
     "dir_cost": "cavif_tpu/ops/device_pass1.py:594",  # _fused_dir_cost
     "nd_cost": "cavif_tpu/ops/device_pass1.py:475",   # _fused_nd_cost
@@ -1882,6 +1908,475 @@ def phase_dirtyalpha(torch, img):
                 kernels=kernels, copies=copies, device_ms=dev_ms)
 
 
+def _cli_encoder(quality=80.0, speed=4, depth="auto", color="ycbcr",
+                 dirty_alpha=False):
+    """The library Encoder with the settings the CLI derives from these
+    flags (cavif_tpu_torch/cli.py: alpha quality from quality, threads
+    unset, tune psnr)."""
+    from cavif_tpu_torch import AlphaColorMode, BitDepth, ColorModel, Encoder
+
+    aq = min((quality + 100.0) / 2.0, quality + quality / 4.0 + 2.0)
+    return (
+        Encoder.new().with_quality(quality)
+        .with_bit_depth({"8": BitDepth.Eight, "10": BitDepth.Ten,
+                         "auto": BitDepth.Auto}[depth])
+        .with_speed(speed).with_alpha_quality(aq)
+        .with_internal_color_model(ColorModel.YCbCr if color == "ycbcr"
+                                   else ColorModel.RGB)
+        .with_alpha_color_mode(AlphaColorMode.UnassociatedDirty
+                               if dirty_alpha
+                               else AlphaColorMode.UnassociatedClean)
+        .with_num_threads(None).with_tune("psnr")
+    )
+
+
+def _check_avif(what, data, w, h, depth, alpha):
+    """The AVIF's brand, its parsed header and alpha item, and a Pillow
+    decode at (w, h), with alpha where there should be."""
+    import io
+
+    from PIL import Image
+
+    from cavif_tpu_torch.container.parse import read_avif
+
+    if data[4:12] != b"ftypavif":
+        raise AssertionError(f"{what}: bytes 4-12 are {data[4:12]!r}")
+    info = read_avif(data)
+    if (info.width, info.height, info.bit_depth) != (w, h, depth):
+        raise AssertionError(f"{what}: parsed header {info.width}x"
+                             f"{info.height} {info.bit_depth}-bit")
+    if (info.alpha_item is not None) != alpha:
+        raise AssertionError(f"{what}: alpha item {info.alpha_item is not None}"
+                             f", expected {alpha}")
+    im = Image.open(io.BytesIO(data))
+    im.load()
+    if im.size != (w, h) or (("A" in im.mode) != alpha):
+        raise AssertionError(f"{what}: Pillow decodes {im.size} {im.mode}")
+    return info
+
+
+def _stream_rgb(enc, x):
+    """The RGB that enc's colour stream codes for image x: an RGBA image's
+    colour after the alpha mode's preprocessing."""
+    if x.shape[2] == 3:
+        return x
+    conv = enc._convert_alpha_8bit(x)
+    return np.ascontiguousarray((x if conv is None else conv)[..., :3])
+
+
+def _inside(fig, ref) -> bool:
+    """(bytes, PSNR) fig inside the envelope of ref: bytes at most 1.05x,
+    PSNR at least ref's minus 0.1 dB."""
+    return fig[0] <= 1.05 * ref[0] and fig[1] >= ref[1] - 0.1
+
+
+def _envelope(what, enc, rgb, avif=None, chain_off=False, reference=False):
+    """enc's colour stream of rgb, encoded as the pipeline encodes it on
+    the card (its frame must be avif's colour item, byte for byte, when
+    avif is given; with chain_off the filter chain is off, so the equality
+    also shows the chain neutral), against the host cascade (device="off")
+    with the same settings: bytes at most 1.05x, PSNR of the decoder-exact
+    pre-filter reconstruction at least the host's minus 0.1 dB.
+
+    With reference=True the same stream is also encoded with the pass 1 on
+    the CPU in f32 (the reference's decisions: tests/test_torch_configs.py
+    holds those bytes equal to the JAX package's), and the card must be
+    inside that stream's envelope; where that stream itself lies outside
+    the host envelope (the reference's device search on the gbr model,
+    ROADMAP.md C), the card is held to it alone. Returns (the card's
+    FrameEncoder, the figures)."""
+    from cavif_tpu_torch import pipeline
+    from cavif_tpu_torch.av1.config import AV1Config
+    from cavif_tpu_torch.av1.encoder import FrameEncoder
+    from cavif_tpu_torch.av1.speed import SpeedTweaks
+    from cavif_tpu_torch.container.parse import read_avif
+
+    h, w = rgb.shape[:2]
+    depth = enc.output_depth.bits
+    planes = pipeline._convert_planes(enc, rgb, depth)
+    cfg = AV1Config(
+        width=w, height=h, bit_depth=depth, quantizer=enc.quantizer,
+        tweaks=SpeedTweaks.from_preset(enc.speed, enc.quantizer),
+        chroma_sampling="444", full_range=True,
+        matrix_coefficients=pipeline._matrix_coefficients(enc.color_model),
+        threads=enc.threads, tune=enc.tune, device=enc.device)
+    ref = [planes[..., p] for p in range(3)]
+
+    def stream(device):
+        fe = FrameEncoder(planes, replace(cfg, device=device), src8=rgb)
+        # keep the reconstruction where the encode makes no filter search
+        # (fast deblock without LR, speeds 7-10): output only
+        fe._recon_stack = np.zeros_like(fe._src_stack())
+        data = fe.encode()
+        return fe, data, _psnr(ref, list(fe._recon_full()), h, w, depth)
+
+    if chain_off:
+        os.environ["CAVIF_TPU_DEVICE_FILTERS"] = "0"
+    try:
+        fe, data, cp = stream(enc.device)
+    finally:
+        if chain_off:
+            del os.environ["CAVIF_TPU_DEVICE_FILTERS"]
+    if avif is not None and data != read_avif(avif).primary_item:
+        raise AssertionError(f"{what}: the card's colour frame is not the "
+                             "AVIF's colour item")
+    _, hdata, hp = stream("off")
+    card, host = (len(data), cp), (len(hdata), hp)
+    fig = dict(card_bytes=card[0], card_psnr=cp, host_bytes=host[0],
+               host_psnr=hp)
+    print(f"[configs] {what} colour: card {card[0]} B {cp:.4f} dB, host "
+          f"{host[0]} B {hp:.4f} dB (limits: bytes <= "
+          f"{1.05 * host[0]:.0f}, PSNR >= {hp - 0.1:.4f})")
+    ok = _inside(card, host)
+    if reference:
+        _, rdata, rp = stream("cpu")
+        cpu = (len(rdata), rp)
+        fig.update(cpu_f32_bytes=cpu[0], cpu_f32_psnr=rp)
+        inherited = not _inside(cpu, host)
+        print(f"[configs] {what} colour: pass 1 on the CPU in f32 "
+              f"{cpu[0]} B {rp:.4f} dB ({'outside' if inherited else 'inside'}"
+              f" the host envelope); card inside its envelope: "
+              f"{_inside(card, cpu)}")
+        ok = _inside(card, cpu) and (ok or inherited)
+    if not ok:
+        raise AssertionError(f"{what}: outside the envelope")
+    return fe, fig
+
+
+def _decoded_envelope(what, enc, x, avif):
+    """A batch AVIF's colour stream against the host cascade's AVIF of the
+    same image and settings: colour bytes at most 1.05x and PSNR of the
+    Pillow-decoded RGB against the stream's input at least the host's
+    minus 0.1 dB."""
+    import io
+
+    from PIL import Image
+
+    from cavif_tpu_torch.container.parse import read_avif
+
+    rgb = _stream_rgb(enc, x).astype(np.float64)
+
+    def measure(data):
+        d = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        mse = float(((d.astype(np.float64) - rgb) ** 2).mean())
+        return (len(read_avif(data).primary_item),
+                10.0 * np.log10(255.0 ** 2 / max(mse, 1e-12)))
+
+    host = (replace(enc, device="off").encode_rgba if x.shape[2] == 4
+            else replace(enc, device="off").encode_rgb)(x).avif_file
+    (cb, cp), (hb, hp) = measure(avif), measure(host)
+    print(f"[configs] {what} colour: card {cb} B {cp:.4f} dB decoded, host "
+          f"{hb} B {hp:.4f} dB")
+    if cb > 1.05 * hb or cp < hp - 0.1:
+        raise AssertionError(f"{what}: outside the host envelope")
+    return dict(card_bytes=cb, card_psnr=cp, host_bytes=hb, host_psnr=hp)
+
+
+@contextlib.contextmanager
+def _chain_calls(df):
+    """df.run_filter_chain counted for the block: yields the list of its
+    calls' outcomes (True: the chain ran)."""
+    calls = []
+    real = df.run_filter_chain
+
+    def counted(fe):
+        out = real(fe)
+        calls.append(out is not None)
+        return out
+
+    df.run_filter_chain = counted
+    try:
+        yield calls
+    finally:
+        df.run_filter_chain = real
+
+
+@contextlib.contextmanager
+def _kernel_events(torch, dp):
+    """K1's and K2's wrappers, as device_pass1 calls them, bracketed by
+    CUDA events for the block: yields {name: [(start, end), ...]}."""
+    events = {"dir_cost": [], "nd_cost": []}
+    real = {name: getattr(dp, name) for name in events}
+
+    def timed(name):
+        def call(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real[name](*args, **kw)
+            end.record()
+            events[name].append((start, end))
+            return out
+        return call
+
+    for name in events:
+        setattr(dp, name, timed(name))
+    try:
+        yield events
+    finally:
+        for name, fn in real.items():
+            setattr(dp, name, fn)
+
+
+def phase_configs(torch, pk, dp, smi, img):
+    """BASELINE.json's five configurations through the port on the card:
+    (1) the CLI with its defaults on three PNGs at once (its thread pool
+    encodes them concurrently), each file byte-equal to an in-process
+    encode with the same settings, whose K1/K2 launches are counted;
+    (2) --depth=8 at --quality 40, 60, 80, 95; (3) RGBA with and without
+    --dirty-alpha; (4) --color=rgb at --speed 1 and 10, with the filter
+    chain auto-engaged and byte-neutral and the 64 tier priced at speed 1;
+    every CLI call runs in its own process, all started together, and
+    each configuration's colour stream is held against the host cascade;
+    (5a) the 7680x4320 frame through tools/bench8k.encode, cold then warm
+    with the chain on, K1/K2 launched, decoded, inside the envelope and
+    equal to a chain-off encode; (5b) the first BATCH_N images of
+    tools/batch512_bench through both batch paths; then one pass of
+    tools/bench's stage split, roofline and attachment flags."""
+    import shutil
+    import tempfile
+
+    from PIL import Image
+
+    from cavif_tpu_torch.ops import device_filters as df
+    from cavif_tpu_torch.ops.ingest import load_rgba
+    from cavif_tpu_torch.tools import batch512_bench, bench, bench8k
+
+    out = {}
+    h, w = img.shape[:2]
+    yy, xx = np.mgrid[0:h, 0:w]
+    alpha = np.clip((xx + yy) * 255 // (w + h - 2), 0, 255).astype(np.uint8)
+    rgba = np.dstack([img, alpha])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_configs_")
+    try:
+        # every CLI call at once: name -> (flags, images)
+        rolled = [np.ascontiguousarray(np.roll(img, 13 * i, axis=1))
+                  for i in range(3)]
+        jobs = {"defaults": ([], rolled)}
+        for q in CONFIG_QUALITIES:
+            jobs[f"depth8_q{q}"] = (["--depth=8", "--quality", str(q)], [img])
+        jobs["rgba_clean"] = ([], [rgba])
+        jobs["rgba_dirty"] = (["--dirty-alpha"], [rgba])
+        for s in CONFIG_SPEEDS:
+            jobs[f"rgb_s{s}"] = (["--color=rgb", "--speed", str(s)], [img])
+        procs = {}
+        t0 = time.perf_counter()
+        for name, (flags, xs) in jobs.items():
+            d = os.path.join(tmp, name)
+            os.makedirs(d)
+            pngs = []
+            for i, x in enumerate(xs):
+                p = os.path.join(d, f"image{i}.png")
+                Image.fromarray(x).save(p)
+                pngs.append(p)
+            log = open(os.path.join(d, "cli.log"), "w+")
+            procs[name] = (subprocess.Popen(
+                [sys.executable, "-m", "cavif_tpu_torch", *flags, *pngs],
+                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT), log, pngs)
+        files = {}
+        try:
+            for name, (proc, log, pngs) in procs.items():
+                try:
+                    rc = proc.wait(timeout=CLI_TIMEOUT)
+                except subprocess.TimeoutExpired:
+                    raise AssertionError(f"[configs] CLI {name}: timed out")
+                log.seek(0)
+                text = log.read()
+                if rc != 0:
+                    raise AssertionError(f"[configs] CLI {name}: exit {rc}\n"
+                                         + text[-3000:])
+                files[name] = []
+                for p in pngs:
+                    with open(os.path.splitext(p)[0] + ".avif", "rb") as f:
+                        files[name].append(f.read())
+                print(f"[configs] CLI {name}: exit 0, "
+                      + "; ".join(ln for ln in text.splitlines() if ln))
+        finally:
+            # a failed or late CLI process stops the others
+            for proc, log, _ in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+        print(f"[configs] {len(jobs)} CLI processes ({sum(map(len, files.values()))} "
+              f"files) in {time.perf_counter() - t0:.2f} s")
+
+        # (1) the defaults: three concurrent card encodes, each equal to
+        # an in-process encode of the same PNG, with K1/K2 counted
+        enc = _cli_encoder()
+        for i, data in enumerate(files["defaults"]):
+            _check_avif(f"defaults image {i}", data, w, h, 10, False)
+            with open(os.path.join(tmp, "defaults", f"image{i}.png"),
+                      "rb") as f:
+                x = load_rgba(f.read(), False)
+            pk.reset_launches()
+            mine = enc.encode_rgba(x).avif_file
+            launches = dict(pk.LAUNCHES)
+            if mine != data:
+                raise AssertionError(f"[configs] defaults image {i}: the CLI "
+                                     "file differs from the in-process encode")
+            if min(launches.values()) <= 0:
+                raise AssertionError(f"[configs] defaults image {i}: launches "
+                                     f"{launches}")
+            print(f"[configs] (1) defaults image {i}: {len(data)} B, equal to "
+                  f"the in-process encode, launches {launches}")
+        out["defaults"] = _envelope("(1) defaults", enc, img,
+                                    files["defaults"][0])[1]
+
+        # (2) 8 bits over the quality range
+        for q in CONFIG_QUALITIES:
+            data = files[f"depth8_q{q}"][0]
+            _check_avif(f"depth8 Q{q}", data, w, h, 8, False)
+            out[f"depth8_q{q}"] = _envelope(
+                f"(2) --depth=8 Q{q}", _cli_encoder(quality=float(q),
+                                                    depth="8"), img, data)[1]
+
+        # (3) RGBA, alpha cleaned (the default) and kept dirty
+        for name, dirty in (("rgba_clean", False), ("rgba_dirty", True)):
+            data = files[name][0]
+            _check_avif(name, data, w, h, 10, True)
+            e = _cli_encoder(dirty_alpha=dirty)
+            out[name] = _envelope(f"(3) {name}", e, _stream_rgb(e, rgba),
+                                  data)[1]
+
+        # (4) the gbr model at the slowest and fastest speeds: the chain
+        # auto-engaged and byte-neutral, the 64 tier priced at speed 1
+        for s in CONFIG_SPEEDS:
+            data = files[f"rgb_s{s}"][0]
+            _check_avif(f"rgb s{s}", data, w, h, 10, False)
+            e = _cli_encoder(speed=s, color="rgb")
+            fe, out[f"rgb_s{s}"] = _envelope(f"(4) --color=rgb --speed {s}",
+                                             e, img, data, reference=True)
+            tiers = sorted({shape for shape, _ in fe._dev_state[0]})
+            if s == 1 and ((64, 64), "code") not in fe._dev_state[0]:
+                raise AssertionError(f"[configs] speed 1: no 64 tier in the "
+                                     f"pass-1 grids ({tiers})")
+            pk.reset_launches()
+            with _chain_calls(df) as calls:
+                on, wall_on, split_on = _trace_split(e, img, False)
+            launches = dict(pk.LAUNCHES)
+            os.environ["CAVIF_TPU_DEVICE_FILTERS"] = "0"
+            try:
+                off = e.encode_rgb(img).avif_file
+            finally:
+                del os.environ["CAVIF_TPU_DEVICE_FILTERS"]
+            # at speeds 7-10 without LR (fast deblock) the encoder makes
+            # no filter search at all, as the reference's does: the chain
+            # has nothing to run there
+            if fe._want_filters:
+                ran = bool(calls) and all(calls) \
+                    and "device_filters" in split_on
+                chain = "chain ran"
+            else:
+                ran = not calls and "device_filters" not in split_on
+                chain = "no filter search at this speed (fast deblock)"
+            if not ran:
+                raise AssertionError(f"[configs] speed {s}: filter search "
+                                     f"{fe._want_filters}, chain calls "
+                                     f"{calls}, spans {sorted(split_on)}")
+            if on != off or on != data:
+                raise AssertionError(f"[configs] speed {s}: chain on, chain "
+                                     "off and the CLI differ")
+            print(f"[configs] (4) speed {s}: pass-1 shapes {tiers}; {chain}, "
+                  f"{len(on)} B identical with the chain off and to the "
+                  f"CLI; {wall_on:.4f} s traced, launches {launches}, stages "
+                  + json.dumps({k: round(v, 4) for k, v in sorted(
+                      split_on.items(), key=lambda kv: -kv[1])[:6]}))
+            if min(launches.values()) <= 0:
+                raise AssertionError(f"[configs] speed {s}: launches "
+                                     f"{launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (5a) the 8K frame, cold then warm with the chain on
+    img8 = bench8k.img8k()
+    H8, W8 = img8.shape[:2]
+    mp8 = H8 * W8 / 1e6
+    enc8 = bench.encoder("cuda")
+    cold, cold_s, cold_peak = bench8k.encode(enc8, img8)
+    pk.reset_launches()
+    with _chain_calls(df) as calls, _kernel_events(torch, dp) as events:
+        warm, warm_s, warm_peak = bench8k.encode(enc8, img8)
+    launches = dict(pk.LAUNCHES)
+    kernel_ms = {name: sum(a.elapsed_time(b) for a, b in ev)
+                 for name, ev in events.items()}
+    print(f"[configs] (5a) {W8}x{H8}: cold {cold_s:.3f} s, peak "
+          f"{cold_peak / 2 ** 30:.2f} GiB; warm {warm_s:.3f} s = "
+          f"{mp8 / warm_s:.3f} MP/s, peak {warm_peak / 2 ** 30:.2f} GiB, "
+          f"{len(warm)} B, launches {launches}, chain calls {calls}; K1/K2 "
+          f"inside the warm encode (CUDA events, summed over the shapes): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in kernel_ms.items()))
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"[configs] 8K: launches {launches}")
+    if not calls or not all(calls):
+        raise AssertionError(f"[configs] 8K: the chain did not run ({calls})")
+    if cold != warm:
+        raise AssertionError("[configs] 8K: cold and warm encodes differ")
+    _check_avif("8K", warm, W8, H8, 10, False)
+    out["8k"] = dict(cold_s=cold_s, warm_s=warm_s, mp_s=mp8 / warm_s,
+                     peak_gib=warm_peak / 2 ** 30, launches=launches,
+                     kernel_ms=kernel_ms,
+                     **_envelope("(5a) 8K (chain off)", enc8, img8, warm,
+                                 chain_off=True)[1])
+    print("[configs] (5a) 8K: the chain-off colour frame equals the chain-on "
+          "AVIF's")
+    del img8, cold, warm
+
+    # (5b) the mixed batch through both paths
+    imgs, mp = batch512_bench.make_images(BATCH_N)
+    enc = bench.encoder("cuda")
+    out["batch"] = {}
+    for path in ("hybrid", "sharded"):
+        # warm: the first 8 images span the four buckets and an RGBA image
+        batch512_bench.run_path(path, imgs[:8], enc)
+        pk.reset_launches()
+        avifs, wall = batch512_bench.run_path(path, imgs, enc)
+        launches = dict(pk.LAUNCHES)
+        for i, (x, data) in enumerate(zip(imgs, avifs)):
+            _check_avif(f"batch {path} image {i}", data, x.shape[1],
+                        x.shape[0], 10, i % 8 == 3)
+        print(f"[configs] (5b) {path}: {len(imgs)} images, {mp:.4f} MP, warm "
+              f"{wall:.4f} s = {mp / wall:.4f} MP/s, launches {launches}; "
+              "every AVIF parses and decodes, alpha on every 8th")
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"[configs] batch {path}: launches "
+                                 f"{launches}")
+        out["batch"][path] = dict(wall=wall, mp_s=mp / wall,
+                                  launches=launches)
+        for i in range(len(batch512_bench.SHAPES)):
+            x = imgs[i]
+            out["batch"][path][f"image{i}"] = _decoded_envelope(
+                f"(5b) {path} image {i} {x.shape[1]}x{x.shape[0]}", enc, x,
+                avifs[i])
+
+    # tools/bench: the stage split, the card's roofline, the flags
+    img1 = bench.test_image(SIZE, SIZE)
+    enc = bench.encoder("cuda")
+    enc.encode_rgb(img1)  # dp.LAST_KEY: this frame's program
+    stages = bench.stage_breakdown(enc, img1)
+    roof = bench.device_roofline(img1, stages.get("device_pass1"), "cuda")
+    att = bench.attachment_flags()
+    print("[configs] bench " + json.dumps(dict(
+        stage_seconds_single=stages, device_pass1_mfu=roof,
+        attachment_probe=att)))
+    if "error" in roof or smi not in roof["peaks"] \
+            or not roof["mfu_exec"] > 0:
+        raise AssertionError(f"[configs] bench roofline {roof}")
+    if not att["device_filters_engaged"]:
+        raise AssertionError("[configs] bench: the chain is not engaged")
+    out["bench"] = dict(stages=stages, roofline=roof, attachment=att)
+    print("[configs] " + json.dumps(out))
+    return out
+
+
+def _timed(name, fn, *args):
+    """fn(*args), with the phase's seconds printed."""
+    t0 = time.perf_counter()
+    res = fn(*args)
+    print(f"[time] {name} {time.perf_counter() - t0:.1f} s", flush=True)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1898,14 +2393,16 @@ def main() -> int:
     from cavif_tpu_torch.ops import search_kernels as sk
     from cavif_tpu_torch.tools import dir_ablation, dir_proto
 
+    t_start = time.perf_counter()
     dp.resolve_device("cuda")  # also pins TF32 off
     smi, sms, clock_hz = phase_card(torch)
     kind = torch.cuda.get_device_name(0)
     peaks = _peaks(kind, sms, clock_hz)
-    phase_build(cb)
+    _timed("build", phase_build, cb)
 
     img = _test_image(SIZE, SIZE)
     cfg, geo = _frame_geometry()
+    t0 = time.perf_counter()
     with torch.inference_mode():
         planes = dp._convert(torch.from_numpy(img).cuda(), "ycbcr", 10)
         rows = phase_kernels(torch, pk, dp, geo, planes,
@@ -1917,16 +2414,20 @@ def main() -> int:
             torch, prk, pk, dp, dir_proto, dir_ablation, inputs, peaks)
         del inputs
     del planes
-    phase_small_reference(dp, geo, img)
-    launches = phase_encode(torch, pk, img)
-    phase_quality(img)
-    phase_filters(torch, img)
-    launches["mode_cost"], search, search_wall = phase_block_search(
-        torch, sk, bs, geo, img)
-    batch = phase_batch(torch, pk, dp, img)
-    phase_mesh(torch, smi, img, geo, batch, search, search_wall)
-    phase_pass2(torch, img)
-    phase_dirtyalpha(torch, img)
+    print(f"[time] kernels, k3, proto {time.perf_counter() - t0:.1f} s")
+    _timed("small", phase_small_reference, dp, geo, img)
+    launches = _timed("encode", phase_encode, torch, pk, img)
+    _timed("quality", phase_quality, img)
+    _timed("filters", phase_filters, torch, img)
+    launches["mode_cost"], search, search_wall = _timed(
+        "search", phase_block_search, torch, sk, bs, geo, img)
+    batch = _timed("batch", phase_batch, torch, pk, dp, img)
+    _timed("mesh", phase_mesh, torch, smi, img, geo, batch, search,
+           search_wall)
+    _timed("pass2", phase_pass2, torch, img)
+    _timed("dirtyalpha", phase_dirtyalpha, torch, img)
+    _timed("configs", phase_configs, torch, pk, dp, smi, img)
+    print(f"[time] total {time.perf_counter() - t_start:.1f} s")
     launches.update(proto_launches)
     # K4's and K5's rows sum the four tiers at the harnesses' defaults
     # (reduce "matmul", variant "full", the default tile)
