@@ -6,9 +6,13 @@ lib.rs:14-30 and av1encoder.rs:67-275): an `Encoder` builder with
 `EncodedImage`, plus the `ColorModel` / `AlphaColorMode` / `BitDepth` enums.
 
 The device pass 1 (color conversion, the partition + intra-mode search)
-runs on an NVIDIA GPU through PyTorch and two hand-written CUDA kernels; pass
-2, the entropy-coding tail, the loop filters and ISOBMFF packaging run on the
-host in C++.
+runs on an NVIDIA GPU through PyTorch and two hand-written CUDA kernels.
+Whenever pass 1 runs on the card, the in-loop filter chain (deblock, CDEF,
+loop restoration) runs there too (ops/device_filters.py, engaged by the
+attachment probe of ops/attachment.py); the host C++ runs the filters only
+with the chain off (CAVIF_TPU_DEVICE_FILTERS=0 or a probe that does not
+engage it) or on the host cascade (device "off"). Pass 2, the
+entropy-coding tail and ISOBMFF packaging run on the host in C++.
 """
 
 from __future__ import annotations

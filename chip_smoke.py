@@ -128,7 +128,19 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    alpha on every 8th, warm MP/s, the first image of each shape bucket
    inside the envelope (decoded); then tools/bench's stage split,
    roofline (its peaks naming the card) and attachment flags;
-12. one JSON line listing the kernels, the card line, and last the JSON
+12. the ports of the repository's JAX-driven scripts ([tools]): (a)
+   cavif_tpu_torch.entry's entry() program on its example batch, its
+   packed shape asserted and bit-equal to run_pass1_batch, and
+   dryrun_multichip(1) (one NCCL rank, a (1, 1) mesh) equal to it; (b)
+   tools/card_probe and card_probe2 at 1024x1024, every line printed, K3
+   launched, no failure caught; (c) tools/bdrate's dense sweep (Q40-92
+   step 4) of photo (768x768) and bench1024 on the card, on the host
+   cascade and through libaom speed 6: BD-PSNR, BD-SSIM and BD-rate of
+   the card against libaom and against the host, the card held to
+   BD-PSNR >= -0.1 dB and BD-rate <= +5% of the host on each image, every
+   AVIF decoded by Pillow; (d) tools/scale_bench --n 4 --size 512 (world 1
+   and 2 over gloo, sharing the card), its JSON line;
+13. one JSON line listing the kernels, the card line, and last the JSON
    result line. Every phase prints its seconds ([time] lines).
 
 Without a CUDA card, or outside a checkout of the repository, it exits
@@ -179,8 +191,16 @@ MESH_TIMEOUT = 420
 # CLI process may take
 CONFIG_QUALITIES = (40, 60, 80, 95)
 CONFIG_SPEEDS = (1, 10)
-BATCH_N = 64
+BATCH_N = 16
 CLI_TIMEOUT = 600
+# the [tools] phase: the probes' plane size, the BD images (the two that
+# tools/ssim_probe.py singles out) and the card's limits against the host
+# cascade at matched rate (the per-encode envelope's, in BD form), and
+# the scaling bench's arguments
+PROBE_SIZE = 1024
+BD_IMAGES = ("photo", "bench1024")
+BD_PSNR_MIN, BD_RATE_MAX = -0.1, 5.0
+SCALE_ARGS = ("--n", "4", "--size", "512")
 REPLACES = {
     "dir_cost": "cavif_tpu/ops/device_pass1.py:594",  # _fused_dir_cost
     "nd_cost": "cavif_tpu/ops/device_pass1.py:475",   # _fused_nd_cost
@@ -1266,6 +1286,42 @@ def _pass1_calls(dp):
         dp.run_pass1_batch = real
 
 
+@contextlib.contextmanager
+def _card_frames(dp):
+    """dp.run_pass1 and dp.run_pass1_batch wrapped for the block: yields a
+    list that gets, per call, the number of frames whose pass 1 ran on
+    the card (1, or the batch's length); the streams of a batch path that
+    it does not count went to the host cascade."""
+    import threading
+
+    frames, inner = [], threading.local()
+    one, batch = dp.run_pass1, dp.run_pass1_batch
+
+    def run_one(*a, **kw):
+        out = one(*a, **kw)
+        frames.append(1)
+        return out
+
+    def run_batch(srcs, **kw):
+        # a long batch calls run_pass1_batch again per chunk: count the
+        # outermost call only
+        depth = getattr(inner, "depth", 0)
+        inner.depth = depth + 1
+        try:
+            out = batch(srcs, **kw)
+        finally:
+            inner.depth = depth
+        if depth == 0:
+            frames.append(len(srcs))
+        return out
+
+    dp.run_pass1, dp.run_pass1_batch = run_one, run_batch
+    try:
+        yield frames
+    finally:
+        dp.run_pass1, dp.run_pass1_batch = one, batch
+
+
 def phase_batch(torch, pk, dp, img0):
     """encode_batch_sharded on four RGB images and one RGBA image at
     1024x1024, then the colour streams against the host cascade. Returns
@@ -1426,8 +1482,6 @@ def mesh_worker(rank: int, world: int, port: int, backend: str,
     once timed with the kernels' launch counts set to 0 just before and
     read just after. Prints one "MESH {json}" line; rank 0 writes its
     arrays to out_dir."""
-    from datetime import timedelta
-
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -1440,13 +1494,12 @@ def mesh_worker(rank: int, world: int, port: int, backend: str,
     from cavif_tpu_torch.ops import pass1_kernels as pk
     from cavif_tpu_torch.ops import search_kernels as sk
     from cavif_tpu_torch.parallel import batch as pbatch
+    from cavif_tpu_torch.parallel import ranks
 
     os.environ["CAVIF_TPU_SHARDED_STEAL"] = "0"
     torch.cuda.set_device(0)
     dp.resolve_device("cuda")
-    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
-                            world_size=world, rank=rank,
-                            timeout=timedelta(seconds=MESH_TIMEOUT))
+    ranks.init_rank(rank, world, port, backend, MESH_TIMEOUT)
     try:
         mesh = init_device_mesh("cpu" if backend == "gloo" else "cuda",
                                 shape, mesh_dim_names=("data", "tile"))
@@ -1493,40 +1546,23 @@ def mesh_worker(rank: int, world: int, port: int, backend: str,
 
 
 def _mesh_group(world: int, backend: str, shape: tuple, out_dir: str):
-    """Start `world` mesh_worker processes on a free localhost port and
-    wait for all of them (MESH_TIMEOUT s in all); a worker that fails or
-    times out fails the phase, and every worker is stopped. Returns each
-    rank's report."""
-    import socket
+    """Start `world` mesh_worker processes through the package's rank
+    launcher (cavif_tpu_torch/parallel/ranks.py; MESH_TIMEOUT s in all,
+    each rank's output kept in OUT_DIR/mesh_<backend>/); a worker that
+    fails or times out fails the phase, and every worker is stopped.
+    Returns each rank's report."""
+    from cavif_tpu_torch.parallel import ranks
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    procs = [subprocess.Popen(
+    outs = ranks.run_ranks(
         [sys.executable, os.path.abspath(__file__), "--mesh-worker",
-         json.dumps([r, world, port, backend, list(shape), out_dir])],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(world)]
-    deadline = time.time() + MESH_TIMEOUT
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=max(1.0,
-                                                  deadline - time.time())))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
+         json.dumps([backend, list(shape), out_dir])], world, MESH_TIMEOUT,
+        log_dir=os.path.join(OUT_DIR, f"mesh_{backend}"))
     reports = []
-    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+    for r, out in enumerate(outs):
         lines = [ln for ln in out.splitlines() if ln.startswith("MESH ")]
-        if p.returncode != 0 or len(lines) != 1:
-            with open(os.path.join(OUT_DIR, f"mesh_{backend}_rank{r}.txt"),
-                      "w") as f:
-                f.write(out + "\n" + err)
-            raise AssertionError(f"[mesh] {backend} rank {r} exited "
-                                 f"{p.returncode}: {err[-2000:]}")
+        if len(lines) != 1:
+            raise AssertionError(f"[mesh] {backend} rank {r} printed "
+                                 f"{len(lines)} MESH lines")
         reports.append(json.loads(lines[0][5:]))
     return reports
 
@@ -2330,14 +2366,19 @@ def phase_configs(torch, pk, dp, smi, img):
         # warm: the first 8 images span the four buckets and an RGBA image
         batch512_bench.run_path(path, imgs[:8], enc)
         pk.reset_launches()
-        avifs, wall = batch512_bench.run_path(path, imgs, enc)
+        with _card_frames(dp) as frames:
+            avifs, wall = batch512_bench.run_path(path, imgs, enc)
         launches = dict(pk.LAUNCHES)
         for i, (x, data) in enumerate(zip(imgs, avifs)):
             _check_avif(f"batch {path} image {i}", data, x.shape[1],
                         x.shape[0], 10, i % 8 == 3)
+        streams = len(imgs) + sum(i % 8 == 3 for i in range(len(imgs)))
         print(f"[configs] (5b) {path}: {len(imgs)} images, {mp:.4f} MP, warm "
               f"{wall:.4f} s = {mp / wall:.4f} MP/s, launches {launches}; "
-              "every AVIF parses and decodes, alpha on every 8th")
+              f"pass 1 of {sum(frames)} of the {streams} streams (colour "
+              f"and alpha) on the card in {len(frames)} calls, the rest on "
+              "the host cascade; every AVIF parses and decodes, alpha on "
+              "every 8th")
         if min(launches.values()) <= 0:
             raise AssertionError(f"[configs] batch {path}: launches "
                                  f"{launches}")
@@ -2366,6 +2407,122 @@ def phase_configs(torch, pk, dp, smi, img):
         raise AssertionError("[configs] bench: the chain is not engaged")
     out["bench"] = dict(stages=stages, roofline=roof, attachment=att)
     print("[configs] " + json.dumps(out))
+    return out
+
+
+def phase_tools(torch, pk, sk, smi):
+    """The ports of the repository's JAX-driven scripts on the card:
+    (a) cavif_tpu_torch.entry: entry()'s program on its example batch
+    (K1/K2 launched), the packed shape asserted and bit-equal to
+    run_pass1_batch on the same inputs, then dryrun_multichip(1), one
+    NCCL rank as a (1, 1) mesh, equal to it; (b) tools/card_probe and
+    card_probe2 at PROBE_SIZE, every line printed, K3 launched (nothing is
+    caught: a failure fails the run); (c) tools/bdrate's dense sweep of
+    the BD_IMAGES on the card and on the host cascade (device "off"), and
+    libaom speed 6: BD figures of the card against libaom and against the
+    host, the card held to BD-PSNR >= BD_PSNR_MIN dB and BD-rate <=
+    BD_RATE_MAX % of the host on each image (every AVIF decoded by
+    Pillow); (d) tools/scale_bench at SCALE_ARGS (world 1 and 2 on gloo,
+    sharing the card), its JSON line."""
+    import contextlib
+    import io
+
+    from cavif_tpu_torch import entry as ent
+    from cavif_tpu_torch.ops import device_pass1 as dp
+    from cavif_tpu_torch.tools import (ab_quality, bdrate, card_probe,
+                                       card_probe2, scale_bench)
+
+    out = {}
+    t0 = time.perf_counter()
+    fn, args = ent.entry("cuda")
+    pk.reset_launches()
+    with torch.inference_mode():
+        packed = fn(*args).cpu().numpy()
+    launches = dict(pk.LAUNCHES)
+    total = ent.width()
+    if packed.shape != (2, total) or min(launches.values()) <= 0:
+        raise AssertionError(f"[tools] entry: packed {packed.shape} (want "
+                             f"{(2, total)}), launches {launches}")
+    batch = ent.pack(dp.run_pass1_batch(ent.batch(2), device="cuda",
+                                        **ent.KW))
+    if not np.array_equal(packed, batch):
+        raise AssertionError("[tools] entry() differs from run_pass1_batch "
+                             f"on {int((packed != batch).sum())} entries")
+    from cavif_tpu_torch.parallel import ranks
+
+    backend = ranks.backend_for("cuda", 1)
+    dry = ent.dryrun_multichip(1)
+    if dry.shape != (2, total) or not np.array_equal(dry, packed):
+        raise AssertionError(f"[tools] dryrun_multichip(1): {dry.shape}, "
+                             "not entry()'s packed output")
+    print(f"[tools] entry(): packed {packed.shape} int8, K1/K2 launches "
+          f"{launches}, bit-equal to run_pass1_batch; dryrun_multichip(1) "
+          f"({backend}, (1, 1) mesh, b = 2): shape asserted, bit-equal to "
+          f"entry(); {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    sk.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        probes = {"card_probe": card_probe.run("cuda", PROBE_SIZE),
+                  "card_probe2": card_probe2.run("cuda", PROBE_SIZE)}
+    k3 = sk.LAUNCHES["mode_cost"]
+    for line in buf.getvalue().splitlines():
+        print(f"[tools] probe {line}")
+    print(f"[tools] probes: K3 launched {k3} times; "
+          f"{time.perf_counter() - t0:.1f} s; {smi}")
+    if k3 <= 0:
+        raise AssertionError("[tools] the probes launched no K3")
+    out["probes"] = probes
+
+    t0 = time.perf_counter()
+    imgs = [(n, x) for n, x in ab_quality.images() if n in BD_IMAGES]
+    pk.reset_launches()
+    card = bdrate.sweep(imgs, "cuda")
+    launches = dict(pk.LAUNCHES)
+    host = bdrate.sweep(imgs, "off")
+    aom = bdrate.aom_sweep(imgs)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"[tools] bdrate: card launches {launches}")
+    for name, pts in card.items():
+        print(f"[tools] bdrate {name} card (bytes, PSNR, SSIM) at Q"
+              f"{bdrate.QUALITIES[0]}-{bdrate.QUALITIES[-1]}: "
+              + json.dumps(pts))
+        print(f"[tools] bdrate {name} host: " + json.dumps(host[name]))
+        print(f"[tools] bdrate {name} libaom s{bdrate.AOM_SPEED} at Q"
+              f"{bdrate.AOM_QUALITIES[0]}-{bdrate.AOM_QUALITIES[-1]}: "
+              + json.dumps(aom[name]))
+    bd = {}
+    for what, anchor, ours in (("card vs libaom", aom, card),
+                               ("host vs libaom", aom, host),
+                               ("card vs host", host, card)):
+        print(f"[tools] bdrate {what}:")
+        with contextlib.redirect_stdout(buf := io.StringIO()):
+            bd[what] = bdrate.report(anchor, ours, what.split(" vs ")[1])
+        for line in buf.getvalue().splitlines():
+            print(f"[tools] bdrate   {line}")
+    print(f"[tools] bdrate sweeps of {[n for n, _ in imgs]}: "
+          f"{time.perf_counter() - t0:.1f} s, card K1/K2 launches "
+          f"{launches}; every AVIF decoded by Pillow; {smi}")
+    for name in card:
+        bdp, _, bdr = bd["card vs host"][name]
+        if bdp is None or bdr is None or bdp < BD_PSNR_MIN \
+                or bdr > BD_RATE_MAX:
+            raise AssertionError(
+                f"[tools] bdrate {name}: card vs host BD-PSNR {bdp} dB, "
+                f"BD-rate {bdr} % (limits >= {BD_PSNR_MIN} dB, <= "
+                f"{BD_RATE_MAX} %)")
+    print(f"[tools] bdrate: the card within BD-PSNR >= {BD_PSNR_MIN} dB and "
+          f"BD-rate <= +{BD_RATE_MAX}% of the host cascade on every image")
+    out["bdrate"] = dict(card=card, host=host, aom=aom, bd=bd)
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf := io.StringIO()):
+        scale_bench.main(list(SCALE_ARGS))
+    res = json.loads(buf.getvalue().splitlines()[-1])
+    print(f"[tools] scale_bench {' '.join(SCALE_ARGS)}: " + json.dumps(res)
+          + f"; {time.perf_counter() - t0:.1f} s; {smi}")
+    out["scale_bench"] = res
     return out
 
 
@@ -2427,6 +2584,7 @@ def main() -> int:
     _timed("pass2", phase_pass2, torch, img)
     _timed("dirtyalpha", phase_dirtyalpha, torch, img)
     _timed("configs", phase_configs, torch, pk, dp, smi, img)
+    _timed("tools", phase_tools, torch, pk, sk, smi)
     print(f"[time] total {time.perf_counter() - t_start:.1f} s")
     launches.update(proto_launches)
     # K4's and K5's rows sum the four tiers at the harnesses' defaults
@@ -2470,6 +2628,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-worker"]:
-        r, world, port, backend, shape, out_dir = json.loads(sys.argv[2])
-        sys.exit(mesh_worker(r, world, port, backend, tuple(shape), out_dir))
+        backend, shape, out_dir = json.loads(sys.argv[2])
+        opt = dict(zip(sys.argv[3::2], map(int, sys.argv[4::2])))
+        sys.exit(mesh_worker(opt["--rank"], opt["--world"], opt["--port"],
+                             backend, tuple(shape), out_dir))
     sys.exit(main())

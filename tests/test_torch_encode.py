@@ -165,24 +165,63 @@ print("ok")
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-2000:]
 
 
-def _imported_roots(path: Path):
-    tree = ast.parse(path.read_text(), filename=str(path))
+REFUSED = ("jax", "jaxlib", "cavif_tpu", "bench", "tools", "pallas_proto",
+           "pallas_proto2")
+
+
+def _tree_roots(tree):
+    """The top-level modules that `tree` imports, and those imported by
+    code held in its string constants: a string with "import" in it that
+    parses as Python (a child process's `-c` program, say) is walked the
+    same way."""
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for a in node.names:
                 yield a.name.split(".")[0]
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield (node.module or "").split(".")[0]
+        elif (isinstance(node, ast.Constant) and isinstance(node.value, str)
+              and "import" in node.value):
+            try:
+                inner = ast.parse(node.value)
+            except SyntaxError:
+                continue  # prose, not code
+            yield from _tree_roots(inner)
+
+
+def _imported_roots(path: Path):
+    yield from _tree_roots(ast.parse(path.read_text(), filename=str(path)))
 
 
 def test_port_sources_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files
-           for m in _imported_roots(f)
-           if m in ("jax", "jaxlib", "cavif_tpu", "bench", "tools",
-                    "pallas_proto", "pallas_proto2")]
+           for m in _imported_roots(f) if m in REFUSED]
     assert not bad, bad
+
+
+CHILD_SOURCE = '''"""Starts a child; this docstring says that it does not import jax."""
+import subprocess
+import sys
+
+CODE = "import jax\\nprint(jax.devices())"
+OTHER = """
+import numpy
+from cavif_tpu import Encoder
+"""
+subprocess.run([sys.executable, "-c", CODE])
+'''
+
+
+def test_import_guard_reads_code_in_strings(tmp_path):
+    """The guard refuses an import that only a child process's program,
+    held in a string, makes; prose that mentions an import is not code."""
+    child = tmp_path / "child.py"
+    child.write_text(CHILD_SOURCE)
+    roots = list(_imported_roots(child))
+    assert [m for m in roots if m in REFUSED] == ["jax", "cavif_tpu"], roots
+    assert {"numpy", "subprocess", "sys"} <= set(roots), roots
 
 
 def test_default_encoder_raises_without_cuda(img):
