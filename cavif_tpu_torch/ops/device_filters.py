@@ -27,6 +27,12 @@ S/2+1 px away (e.g. two 4-px-spaced size-4 edges write x-2..x+1 and
 read p1 at x+2). The C++ of_deblock already exploits this to thread row
 bands; here it makes every edge of a pass independent.
 
+On a CUDA device each deblock pass is one launch of the hand-written
+kernel csrc/deblock.cu (`deblock_pass`), which computes what the plain
+`_deblock_axis` computes, bit for bit; the plain pass runs on the CPU and
+is the kernel's counterpart in the tests. The level pick stays on the
+device, so the deblock search and apply never wait for the card.
+
 Entry points take `device=None` (the card; raises without one) or "cpu"
 (tests) and return host numpy arrays of the JAX package's dtypes.
 Reference behavior: rav1e's in-loop filter toggles as configured by
@@ -36,7 +42,9 @@ itself is the AV1 spec's.
 
 from __future__ import annotations
 
+import ctypes
 import os
+import threading
 from functools import lru_cache
 
 import numpy as np
@@ -44,9 +52,20 @@ import torch
 import torch.nn.functional as F
 
 from ..utils import trace
+from . import cuda_build
 from .device_pass1 import resolve_device
 
 I32, I64 = torch.int32, torch.int64
+
+# launches of the deblock kernel (csrc/deblock.cu) in this process; the
+# plain path counts nothing
+LAUNCHES = {"deblock": 0}
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    with _lock:
+        LAUNCHES["deblock"] = 0
 
 # window offsets: vertical-edge pass reads px[x-8 .. x+7] around an edge
 # at x (size-14 reads p6 = x-7 and q6 = x+6); writes cover x-6 .. x+5
@@ -339,17 +358,86 @@ def _deblock_axis(plane, src, tx_l2, edge, lvl, bit_depth, mi_rows,
     return out, delta
 
 
+def deblock_pass(plane, src, tx_l2, edge, lvl, bit_depth, mi_rows,
+                 mi_cols, luma, vis, row_sub, *, horizontal):
+    """One deblock pass with `_deblock_axis`'s arguments and result: the
+    plain `_deblock_axis` for tensors on the CPU, one launch of the CUDA
+    kernel csrc/deblock.cu for tensors on a CUDA device (B = lvl.numel()
+    from 1 to 4; plane (H, W) or (B, H, W); every tensor int32 and
+    contiguous, or it raises). The launch goes on the current stream and
+    nothing waits for it."""
+    dev = plane.device
+    if dev.type == "cpu":
+        return _deblock_axis(plane, src, tx_l2, edge, lvl, bit_depth,
+                             mi_rows, mi_cols, luma, vis, row_sub,
+                             horizontal=horizontal)
+    lvl = lvl.reshape(-1)
+    B = lvl.shape[0]
+    H, W = plane.shape[-2:]
+    if not 1 <= B <= 4:
+        raise ValueError(f"deblock_pass: {B} levels, the kernel takes 1-4")
+    if plane.dim() != 2 and tuple(plane.shape[:-2]) != (B,):
+        raise ValueError(f"deblock_pass: plane {tuple(plane.shape)} is "
+                         f"neither (H, W) nor ({B}, H, W)")
+    if row_sub < 1:
+        raise ValueError(f"deblock_pass: row_sub {row_sub} < 1")
+    cuda_build.check("plane", plane, plane.shape, I32, dev)
+    if src is not None:
+        cuda_build.check("src", src, (H, W), I32, dev)
+    cuda_build.check("tx_l2", tx_l2, (mi_rows, mi_cols), I32, dev)
+    cuda_build.check("edge", edge, (mi_rows, mi_cols), I32, dev)
+    cuda_build.check("lvl", lvl, (B,), I32, dev)
+    out = torch.empty((B, H, W), dtype=I32, device=dev)
+    # scored, the blocks add into zeros; unscored, the kernel writes zeros
+    delta = (torch.empty if src is None else torch.zeros)(
+        B, dtype=I64, device=dev)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = cuda_build.function("deblock", "deblock_pass",
+                             [p, i, p, p, p, p, p, p] + [i] * 11 + [p])
+    with torch.cuda.device(dev):
+        err = fn(plane.data_ptr(), 1 if plane.dim() == 2 else B,
+                 None if src is None else src.data_ptr(), tx_l2.data_ptr(),
+                 edge.data_ptr(), lvl.data_ptr(), out.data_ptr(),
+                 delta.data_ptr(), B, H, W, mi_rows, mi_cols, int(luma),
+                 int(horizontal), bit_depth, vis[0], vis[1], row_sub,
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"deblock_pass launch failed: CUDA error {err}")
+    with _lock:
+        LAUNCHES["deblock"] += 1
+    if src is None and luma and horizontal:
+        # the luma apply's last pass: once per frame whose deblock the
+        # kernel ran (kernel.deblock_engaged reads it over the F1 calls)
+        trace.count("device_filters.deblock_kernel")
+    return out, delta
+
+
 def _deblock_plane(plane, src, txw, txh, ev, eh, lvl, bit_depth,
                    mi_rows, mi_cols, luma, vis, row_sub):
     """Full deblock of one plane at B levels (lvl: (B,) or 0-dim int32):
     all vertical edges, then all horizontal edges on the v-filtered plane
     (spec pass order). Returns ((B, H, W) filtered, (B,) SSE deltas)."""
     lvl = lvl.reshape(-1, 1, 1)
-    p1, dv = _deblock_axis(plane, src, txw, ev, lvl, bit_depth, mi_rows,
-                           mi_cols, luma, vis, row_sub, horizontal=False)
-    p2, dh = _deblock_axis(p1, src, txh, eh, lvl, bit_depth, mi_rows,
-                           mi_cols, luma, vis, row_sub, horizontal=True)
-    return p2, dv + dh
+    p1, dv = deblock_pass(plane, src, txw, ev, lvl, bit_depth, mi_rows,
+                          mi_cols, luma, vis, row_sub, horizontal=False)
+    p2, dh = deblock_pass(p1, src, txh, eh, lvl, bit_depth, mi_rows,
+                          mi_cols, luma, vis, row_sub, horizontal=True)
+    # unscored (src None), both deltas are zero
+    return p2, dv if src is None else dv + dh
+
+
+def _pick_levels(deltas, y_cands, uv_cands):
+    """(4,) int32 levels [y, y, u, v] from the (3, NC) SSE deltas of the y,
+    u and v candidates: per plane the host rule (the first strict
+    improvement in the sorted candidate order == the first argmin's
+    candidate where its delta is < 0, else 0); u and v are only coded
+    when y is nonzero. The indices stay (3, 1) tensors: a 0-d tensor as
+    an index is read to the host."""
+    cands = torch.stack([y_cands, uv_cands, uv_cands])
+    i = torch.argmin(deltas, dim=1, keepdim=True)
+    picks = torch.where(deltas.gather(1, i) < 0, cands.gather(1, i),
+                        0)[:, 0].to(I32)
+    return torch.cat([picks[:1], picks[:1], picks[1:] * (picks[:1] > 0)])
 
 
 def _deblock_search_apply(rec, src, txw_l2, txh_l2, edge_v, edge_h,
@@ -371,29 +459,17 @@ def _deblock_search_apply(rec, src, txw_l2, txh_l2, edge_v, edge_h,
         )
 
     dy = plane_pass(0, src[0], y_cands, row_sub)[1]
-    # host rule: first strict improvement under iteration order of the
-    # sorted candidate list == first argmin, taken only when < 0
-    iy = torch.argmin(dy)
-    y = torch.where(dy[iy] < 0, y_cands[iy], 0).to(I32)
-
     if P == 3:
         du = plane_pass(1, src[1], uv_cands, row_sub)[1]
         dv_ = plane_pass(2, src[2], uv_cands, row_sub)[1]
-        iu, iv = torch.argmin(du), torch.argmin(dv_)
-        # u/v levels are only coded when the y level is nonzero
-        u = torch.where((y > 0) & (du[iu] < 0), uv_cands[iu], 0)
-        v = torch.where((y > 0) & (dv_[iv] < 0), uv_cands[iv], 0)
         deltas = torch.stack([dy, du, dv_])
     else:
-        u = v = torch.zeros((), dtype=I32, device=rec.device)
         deltas = torch.stack([dy, dy * 0, dy * 0])
+    levels = _pick_levels(deltas, y_cands, uv_cands)
 
     # final decoder-exact apply at the winning levels (full rows)
-    planes = [plane_pass(0, None, y, 1)[0][0]]
-    for pl, lv in ((1, u), (2, v)):
-        if pl < P:
-            planes.append(plane_pass(pl, None, lv, 1)[0][0])
-    levels = torch.stack([y, y, u, v]).to(I32)
+    planes = [plane_pass(pl, None, levels[pl + 1:pl + 2], 1)[0][0]
+              for pl in range(P)]
     return levels, torch.stack(planes), deltas
 
 

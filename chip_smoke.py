@@ -7,7 +7,7 @@ Phases, each of which fails the run (exit code != 0) when it fails:
 
 1. card: the GPU's name, power limit and maximum SM clock (nvidia-smi),
    torch and CUDA versions;
-2. build: nvcc compiles the four kernel sources from cavif_tpu_torch/csrc/
+2. build: nvcc compiles the five kernel sources from cavif_tpu_torch/csrc/
    (one process per source, all started together);
 3. kernels: for each of the ten block shapes that the 1024x1024 Q80 speed-4
    encode prices, the real ShapeCost inputs of the test image go through
@@ -69,7 +69,15 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    chain's, kernels per call, device busy share); the RGB and RGBA encodes
    with the chain auto-engaged: the device_filters span ran, the host
    filter spans did not, the AVIF bytes equal the chain-off
-   (CAVIF_TPU_DEVICE_FILTERS=0) encodes', and the traced split of both;
+   (CAVIF_TPU_DEVICE_FILTERS=0) encodes', the traced split of both, and
+   the deblock kernel's launches in each chain-on encode (set to 0 just
+   before, read just after: 4 per plane of each chain call); then the
+   deblock kernel (csrc/deblock.cu) against its plain pass on the
+   card, bit for bit, at the frame's shapes and at 8K (the frame's planes
+   and maps tiled to 7680x4320): CUDA-event ms of the search's and the
+   apply's passes summed over planes and axes, beside the plain pass's
+   and the bound (bytes at the card's rate against its integer
+   operations), and the kernels of one level search and pick;
 6. the block-search path at full size: plane_partition_search (tiers
    8-32: three K3 launches) and plane_mode_search at n = 16 (one), each
    with K3's count set to 0 just before and read just after; the same
@@ -157,6 +165,7 @@ chiprun_out/chip_smoke_build.txt.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
 import re
@@ -219,6 +228,7 @@ REPLACES = {
     "mode_cost": "cavif_tpu/ops/pallas_search.py:101",  # _pallas_kernel
     "fused_dir_cost": "tools/pallas_proto.py:74",  # pallas_fused
     "dir_ablation": "tools/pallas_proto2.py:17",   # make
+    "deblock": "none (cavif_tpu/ops/device_filters.py _deblock_axis is XLA)",
 }
 SOURCES = {
     "dir_cost": "cavif_tpu_torch/csrc/pass1_dir_cost.cu",
@@ -226,7 +236,13 @@ SOURCES = {
     "mode_cost": "cavif_tpu_torch/csrc/mode_search_cost.cu",
     "fused_dir_cost": "cavif_tpu_torch/csrc/dir_cost_tc.cu",
     "dir_ablation": "cavif_tpu_torch/csrc/dir_cost_tc.cu",
+    "deblock": "cavif_tpu_torch/csrc/deblock.cu",
 }
+# the deblock kernel's 8K shape (the benchmark's frame) and its integer
+# instructions per fired (line, edge, level), counted from the source: the
+# tests, the widest filter, the window's loads and the writes and deltas
+DEBLOCK_8K = (4320, 7680)
+DEBLOCK_OPS = 200
 
 
 def _test_image(h: int, w: int, seed: int = 42) -> np.ndarray:
@@ -624,7 +640,140 @@ def _trace_split(enc, x, rgba):
     return res.avif_file, wall, stages
 
 
-def phase_filters(torch, img):
+def _deblock_case(df, fe, geo, shape):
+    """(rec, src, (txw, txh, ev, eh), mi_rows, mi_cols, vis) as numpy of the
+    encoded frame, or with shape (H, W) its planes and maps tiled to that
+    frame (planes padded to 64 as the encoder pads them)."""
+    grids = [df._filter_grids(a, fe.mi_rows, fe.mi_cols, "cpu").numpy()
+             for a in fe._filter_maps[1:]]
+    rec, src = fe._recon_full(), fe._src_stack()
+    if shape is None:
+        return rec, src, grids, fe.mi_rows, fe.mi_cols, geo["vis"]
+    H, W = shape
+    mi_rows, mi_cols = -(-H // 4), -(-W // 4)
+
+    def tile(a, n0, n1):
+        reps = (1,) * (a.ndim - 2) + (-(-n0 // a.shape[-2]),
+                                      -(-n1 // a.shape[-1]))
+        return np.ascontiguousarray(np.tile(a, reps)[..., :n0, :n1])
+
+    pad = lambda n: -(-n // 64) * 64
+    return (tile(rec, pad(H), pad(W)), tile(src, pad(H), pad(W)),
+            [tile(g, mi_rows, mi_cols) for g in grids], mi_rows, mi_cols,
+            (W, H))
+
+
+def phase_deblock(torch, df, fe, geo, sub, peaks, per_call):
+    """The deblock kernel against its plain pass (df._deblock_axis) on the
+    card, bit for bit, for every pass of a level search (four candidates
+    at the speed's subsample, scored) and of an apply (one level), at the
+    frame's shapes and at DEBLOCK_8K; CUDA-event ms summed over the
+    planes and both axes, beside the plain pass's and the bound: bytes
+    (the input planes, src, the output planes) at the card's rate against
+    DEBLOCK_OPS integer instructions per fired (line, edge, level) at 64
+    INT32 lanes per SM and clock. Then the CUDA kernels of one level
+    search and pick; per_call is the kernel's launches per chain call of
+    phase_filters' RGB encode (the main path)."""
+    from cavif_tpu_torch.ops import cuda_build
+
+    i32 = torch.int32
+    int_rate = peaks["instr"] / 2  # 64 INT32 lanes per SM, 128 FP32
+    cands = df._deblock_cands(fe._lf_hint())
+    info = (ctypes.c_int * 3)()
+    for hor in (0, 1):
+        fn = cuda_build.function("deblock", "deblock_pass_info",
+                                 [ctypes.c_int, ctypes.c_void_p])
+        if fn(hor, info) != 0:
+            raise AssertionError("[deblock] deblock_pass_info failed")
+        print(f"[deblock] {'horizontal' if hor else 'vertical'} pass: "
+              f"{info[0]} threads, {info[1]} registers, {info[2]} B shared "
+              "memory per block")
+    rows = []
+    for name, shape in (("1mp", None), ("8k", DEBLOCK_8K)):
+        rec, src, (txw, txh, ev, eh), mi_rows, mi_cols, vis = _deblock_case(
+            df, fe, geo, shape)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+        rec_t, src_t = t(rec), t(src)
+        maps = [t(g) for g in (txw, txh, ev, eh)]
+        for phase, levels, rs in (("search", cands, sub),
+                                  ("apply", cands[2:3], 1)):
+            lvl = torch.tensor(levels, dtype=i32, device="cuda").reshape(
+                -1, 1, 1)
+            on = sum(v > 0 for v in levels)
+            ms = plain_ms = nbytes = ops = 0.0
+            for pl in range(rec.shape[0]):
+                g = min(pl, 1)
+                s_pl = src_t[pl] if phase == "search" else None
+                plane = rec_t[pl]
+                for hor in (False, True):
+                    tx, edge = (maps[1], maps[3]) if hor else (maps[0],
+                                                               maps[2])
+                    args = (plane, s_pl, tx[g], edge[g], lvl, fe.bit_depth,
+                            mi_rows, mi_cols, pl == 0, vis, rs)
+                    got = df.deblock_pass(*args, horizontal=hor)
+                    ref = df._deblock_axis(*args, horizontal=hor)
+                    if not (torch.equal(got[0], ref[0])
+                            and torch.equal(got[1], ref[1])):
+                        raise AssertionError(
+                            f"[deblock] {name} {phase} plane {pl} "
+                            f"{'horizontal' if hor else 'vertical'}: the "
+                            "kernel differs from the plain pass")
+                    del ref
+                    ms += _cuda_ms(torch, lambda: df.deblock_pass(
+                        *args, horizontal=hor), 20)
+                    plain_ms += _cuda_ms(torch, lambda: df._deblock_axis(
+                        *args, horizontal=hor), 3)
+                    nbytes += 4 * (plane.numel() + got[0].numel()
+                                   + (0 if s_pl is None else s_pl.numel()))
+                    e = (eh if hor else ev)[g]
+                    fire = (e[1:, :] if hor else e[:, 1:]) != 0
+                    if rs > 1:
+                        # the subsample's mi rows: the edge's (horizontal),
+                        # the filtered line's (vertical)
+                        m = np.arange(1 if hor else 0, mi_rows)
+                        fire = fire & (((m >> 4) % rs) == 0)[:, None]
+                    ops += 4.0 * fire.sum() * on * DEBLOCK_OPS
+                    plane = got[0]
+            t_bytes = nbytes / peaks["bytes"] * 1e3
+            t_ops = ops / int_rate * 1e3
+            row = dict(name=f"deblock.{name}.{phase}", shape=name,
+                       phase=phase, ms=ms, plain_ms=plain_ms,
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       bytes_ms=t_bytes, ops_ms=t_ops)
+            rows.append(row)
+            print(f"[deblock] {name} {phase} ({len(levels)} levels, "
+                  f"row_sub {rs}; {rec.shape[0]} planes x 2 axes): bit-equal "
+                  f"to the plain pass; kernel {ms:.4f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}: bytes "
+                  f"{t_bytes:.4f}, operations {t_ops:.4f}), plain "
+                  f"{plain_ms:.3f} ms", flush=True)
+        del rec_t, src_t, maps
+        torch.cuda.empty_cache()
+    rec_t, src_t = df._upload(fe._recon_full(), "cuda"), df._upload(
+        fe._src_stack(), "cuda")
+    grids = [df._filter_grids(a, fe.mi_rows, fe.mi_cols, "cuda")
+             for a in fe._filter_maps[1:]]
+    cand_t = torch.tensor(cands, dtype=i32, device="cuda")
+    with torch.inference_mode():
+        kernels, copies, dev_ms = _profile(torch, lambda: df._deblock_search_apply(
+            rec_t, src_t, *grids, cand_t, cand_t, row_sub=sub,
+            **dict(geo, vis=tuple(geo["vis"]))))
+    print(f"[deblock] {per_call:g} kernel launches per chain call of the "
+          "RGB encode; "
+          f"one level search and pick (what the chain issues between its "
+          f"deblock and cdef marks): {kernels} CUDA kernels + {copies} "
+          f"copies, device busy {dev_ms:.3f} ms")
+    if per_call != 12 or kernels > 40:
+        raise AssertionError("[deblock] expected 12 kernel launches per "
+                             "chain call of the RGB encode and at most 40 "
+                             "kernels")
+    return dict(name="deblock", route="cuda", source=SOURCES["deblock"],
+                replaces=REPLACES["deblock"], launches=per_call,
+                kernels_per_search=kernels, rows=rows)
+
+
+def phase_filters(torch, img, peaks):
     """The in-loop filter chain on the card. The attachment probe and
     its engage flags; each stage's entry point (deblock_device,
     cdef_device, lr_wiener_plane_device, lr_sgr_plane_device) on the card,
@@ -776,17 +925,30 @@ def phase_filters(torch, img):
 
     def counted(f):
         out = real(f)
-        calls.append(out is not None)
+        calls.append((out is not None, f.num_planes))
         return out
 
+    main_launches = {}
     for what, x, rgba in (("rgb", img, False),
                           ("rgba", np.dstack([img, alpha]), True)):
         calls.clear()
         df.run_filter_chain = counted
+        df.reset_launches()
         try:
             on, wall_on, split_on = _trace_split(enc, x, rgba)
         finally:
             df.run_filter_chain = real
+        # the deblock kernel on the main path: per chain call, each plane's
+        # search and apply, each in both axes
+        launched = df.LAUNCHES["deblock"]
+        want = sum(4 * p for _ok, p in calls)
+        print(f"[filters] {what} encode, chain on: {launched} deblock kernel "
+              f"launches in {len(calls)} chain calls (planes "
+              f"{[p for _ok, p in calls]}; {want} expected)")
+        if launched != want:
+            raise AssertionError(f"[filters] {what}: {launched} deblock "
+                                 f"kernel launches, {want} expected")
+        main_launches[what] = launched / max(len(calls), 1)
         os.environ["CAVIF_TPU_DEVICE_FILTERS"] = "0"
         try:
             off, wall_off, split_off = _trace_split(enc, x, rgba)
@@ -798,7 +960,8 @@ def phase_filters(torch, img):
               f"chain calls {len(calls)}, stages {fmt(split_on)}")
         print(f"[filters] {what} traced encode, chain off: {wall_off:.4f} s, "
               f"stages {fmt(split_off)}")
-        if not calls or not all(calls) or "device_filters" not in split_on:
+        if (not calls or not all(ok for ok, _p in calls)
+                or "device_filters" not in split_on):
             raise AssertionError(f"[filters] {what}: the chain did not run")
         if any(k in split_on for k in ("deblock", "cdef", "lr_solve")):
             raise AssertionError(f"[filters] {what}: host filter spans ran "
@@ -809,7 +972,8 @@ def phase_filters(torch, img):
         print(f"[filters] {what}: {len(on)} bytes, identical with the chain "
               "on and off")
     print("[filters] " + json.dumps({"stages": stages}))
-    return stages
+    return phase_deblock(torch, df, fe, geo, sub, peaks,
+                         main_launches["rgb"])
 
 
 def phase_small_reference(dp, geo, img):
@@ -2577,7 +2741,7 @@ def main() -> int:
     _timed("small", phase_small_reference, dp, geo, img)
     launches = _timed("encode", phase_encode, torch, pk, img)
     _timed("quality", phase_quality, img)
-    _timed("filters", phase_filters, torch, img)
+    deblock = _timed("filters", phase_filters, torch, img, peaks)
     launches["mode_cost"], search, search_wall = _timed(
         "search", phase_block_search, torch, sk, bs, geo, img)
     batch = _timed("batch", phase_batch, torch, pk, dp, img)
@@ -2616,11 +2780,14 @@ def main() -> int:
             else "bytes",
             library_ms=sums["library_ms"],
         ))
+    kernels.append(deblock)
     print("[kernels] times are per 1024x1024 frame, summed over the ten "
           "block shapes (K1, K2; launches per RGB encode) or the tiers 8, 16 "
           "and 32 (K3; launches per plane_partition_search); K4 and K5 "
           "per harness frame, summed over the tiers 4-32 (launches: one "
-          "counted harness call per tier)")
+          "counted harness call per tier); deblock per pass kind and "
+          "shape, summed over planes and axes (launches per chain call "
+          "of the RGB encode)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,7 @@ Every stage is integer arithmetic on all three sides, so equality is
 exact: any mismatch is a bug, not noise. The cases are those of
 tests/test_device_filters.py."""
 
+import contextlib
 import dataclasses
 from functools import lru_cache
 
@@ -23,6 +24,7 @@ from cavif_tpu_torch.av1.encoder import FrameEncoder
 from cavif_tpu_torch.av1.speed import SpeedTweaks
 from cavif_tpu_torch.ops import device_filters as df
 from cavif_tpu_torch.testing import device_under_test
+from cavif_tpu_torch.utils import trace
 
 
 @pytest.fixture(autouse=True)
@@ -348,3 +350,273 @@ def test_entry_points_raise_without_the_card():
         df.deblock_device(rec, rec, fe._filter_maps, 4,
                           bit_depth=10, mi_rows=fe.mi_rows,
                           mi_cols=fe.mi_cols, vis=(64, 64), row_sub=4)
+
+
+# ---------------------------------------------------------------------------
+# The deblock kernel (csrc/deblock.cu through df.deblock_pass) against the
+# plain pass (df._deblock_axis) on the card, bit for bit; on the CPU the
+# wrapper takes the plain pass, and the level pick runs on either.
+# ---------------------------------------------------------------------------
+
+
+def _blocky_plane(rng, H, W, bit_depth):
+    """A plane of 4x4 blocks on a random walk, each flat, smooth or noisy,
+    with small steps between them, so that every filter of every size
+    fires somewhere at some level."""
+    s, maxv = bit_depth - 8, (1 << bit_depth) - 1
+    bh, bw = -(-H // 4), -(-W // 4)
+    walk = (rng.integers(-3, 4, (bh, bw)).cumsum(1)
+            + rng.integers(-3, 4, (bh, 1)).cumsum(0))
+    amp = rng.choice([0, 0, 1, 3, 20], (bh, bw))
+    up = lambda a: np.repeat(np.repeat(a, 4, 0), 4, 1)[:H, :W]
+    noise = np.rint(rng.standard_normal((H, W)) * up(amp))
+    v = maxv // 2 + ((up(walk) + noise) * (1 << s))
+    return np.clip(v, 0, maxv).astype(np.int32)
+
+
+def _edge_pad(a, axis, n):
+    """a extended to n along `axis` by repeating its last index: what the
+    kernel's clamped window reads past the plane."""
+    idx = np.minimum(np.arange(n), a.shape[axis] - 1)
+    return np.take(a, idx, axis=axis)
+
+
+@contextlib.contextmanager
+def _traced():
+    """Tracing on, its counters started afresh, for the block; off after."""
+    trace.set_enabled(True)
+    trace.set_accumulate(True)
+    try:
+        yield
+    finally:
+        trace.set_accumulate(False)
+        trace.set_enabled(False)
+
+
+def _kernel_vs_plain(plane, src, tx, edge, levels, bit_depth, luma, vis,
+                     row_sub, horizontal):
+    """deblock_pass (the kernel) and _deblock_axis (plain) on the card on
+    the same inputs: equal planes and deltas. Where the edge axis is not a
+    multiple of 4 (the plain composition's unit) the plain pass runs on
+    the plane extended by edge repetition, cut back after."""
+    dev = "cuda"
+    mi_rows, mi_cols = tx.shape
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    lvl = t(np.asarray(levels, np.int32))
+    before = df.LAUNCHES["deblock"]
+    out, delta = df.deblock_pass(
+        t(plane), None if src is None else t(src), t(tx), t(edge),
+        lvl.reshape(-1, 1, 1), bit_depth, mi_rows, mi_cols, luma, vis,
+        row_sub, horizontal=horizontal)
+    assert df.LAUNCHES["deblock"] == before + 1
+    axis = -2 if horizontal else -1
+    n = plane.shape[axis]
+    n4 = -(-n // 4) * 4
+    pp = _edge_pad(plane, axis, n4)
+    ps = None if src is None else _edge_pad(src, axis, n4)
+    ref, ref_delta = df._deblock_axis(
+        t(pp), None if ps is None else t(ps), t(tx), t(edge),
+        lvl.reshape(-1, 1, 1), bit_depth, mi_rows, mi_cols, luma, vis,
+        row_sub, horizontal=horizontal)
+    ref = ref[..., :n, :] if horizontal else ref[..., :n]
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape, (out.shape, ref.shape)
+    bad = (out != ref).nonzero()
+    assert bad.shape[0] == 0, ("planes differ", bad[:8].tolist())
+    assert torch.equal(delta, ref_delta), (delta.tolist(),
+                                           ref_delta.tolist())
+    return ref, ref_delta
+
+
+# (H, W, mi_rows, mi_cols, bit_depth, levels, row_sub, luma, horizontal,
+#  batched input, crop): random maps, every level count 1-4, both axes,
+# both plane kinds, widths not a multiple of 8 (36, 44) or of 4 (22, 38
+# along the edge axis), a single mi column or row (no edge), maps smaller
+# than the plane and a visible crop
+RANDOM_KERNEL_CASES = [
+    (64, 96, 16, 24, 10, (4, 8, 10, 63), 4, True, False, False, 0),
+    (64, 96, 16, 24, 10, (4, 8, 10, 63), 4, True, True, True, 0),
+    (64, 96, 16, 24, 8, (0, 63, 7, 30), 2, False, False, False, 0),
+    (64, 96, 16, 24, 8, (0, 63, 7, 30), 2, False, True, True, 0),
+    (64, 96, 16, 24, 12, (63,), 1, False, True, False, 0),
+    (64, 96, 16, 24, 12, (63,), 1, True, False, True, 0),
+    (64, 96, 16, 24, 10, (0,), 1, True, True, False, 0),
+    (40, 36, 10, 9, 12, (1, 20, 40, 62), 1, True, False, False, 3),
+    (40, 36, 10, 9, 10, (1, 20, 40, 62), 4, False, True, True, 3),
+    (38, 44, 10, 11, 10, (40,), 1, True, True, False, 5),
+    (38, 44, 10, 11, 10, (12, 50), 2, True, False, True, 5),
+    (16, 22, 4, 6, 8, (9, 33, 63), 1, True, False, False, 1),
+    (16, 22, 4, 6, 8, (9, 33, 63), 1, False, True, True, 1),
+    (32, 4, 8, 1, 10, (10, 20, 30, 63), 4, True, False, False, 0),
+    (4, 32, 1, 8, 10, (63,), 1, False, True, False, 0),
+    (128, 192, 26, 34, 10, (6, 12, 14, 28), 4, True, False, False, 0),
+    (128, 192, 26, 34, 10, (6, 12, 14, 28), 4, True, True, True, 0),
+    (128, 192, 26, 34, 10, (9,), 1, False, True, True, 0),
+]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("case", RANDOM_KERNEL_CASES,
+                         ids=lambda c: "x".join(map(str, c[:2])) + "-"
+                         + "-".join(map(str, c[4:10])))
+def test_deblock_kernel_equals_the_plain_pass_on_random_maps(case):
+    if device_under_test() != "cuda":
+        pytest.skip("the kernel runs on the card (CAVIF_TORCH_TEST_DEVICE="
+                    "cuda)")
+    (H, W, mi_rows, mi_cols, bd, levels, row_sub, luma, horizontal,
+     batched, crop) = case
+    rng = np.random.default_rng(H * 1000 + W + bd)
+    B = len(levels)
+    plane = (np.stack([_blocky_plane(rng, H, W, bd) for _ in range(B)])
+             if batched else _blocky_plane(rng, H, W, bd))
+    src = _blocky_plane(rng, H, W, bd)
+    tx = rng.integers(0, 7, (mi_rows, mi_cols)).astype(np.int32)
+    edge = rng.integers(0, 2, (mi_rows, mi_cols)).astype(np.int32)
+    vis = (min(W, 4 * mi_cols) - crop, min(H, 4 * mi_rows) - crop)
+    for s in (src, None):
+        ref, _ = _kernel_vs_plain(plane, s, tx, edge, levels, bd, luma, vis,
+                                  row_sub, horizontal)
+    n_edges = (mi_rows if horizontal else mi_cols) - 1
+    if n_edges > 0 and any(levels):
+        # the case filters something
+        base = torch.from_numpy(plane).expand(ref.shape)
+        assert (ref.cpu() != base).any()
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dims,q,seed,speed,mono", DEBLOCK_CASES)
+def test_deblock_kernel_equals_the_plain_pass_on_encoder_maps(dims, q, seed,
+                                                              speed, mono):
+    """Every pass of the level search (four candidates at the speed's
+    subsample) and of the apply, on the maps build_filter_maps made for a
+    host encode, its reconstruction and source."""
+    if device_under_test() != "cuda":
+        pytest.skip("the kernel runs on the card (CAVIF_TORCH_TEST_DEVICE="
+                    "cuda)")
+    H, W = dims
+    fe = _encoded_frame(H, W, q, seed, speed=speed, mono=mono)
+    rec, src = fe._recon_full(), fe._src_stack()
+    _skip, txw, txh, ev, eh = (df._filter_grids(a, fe.mi_rows, fe.mi_cols,
+                                                "cpu").numpy()
+                               for a in fe._filter_maps)
+    cands = df._deblock_cands(fe._lf_hint())
+    for pl in range(rec.shape[0]):
+        g = min(pl, 1)
+        for levels, sub in ((cands, _sub(speed)), (cands[2:3], 1)):
+            v, _ = _kernel_vs_plain(rec[pl], src[pl], txw[g], ev[g], levels,
+                                    fe.bit_depth, pl == 0, (W, H), sub,
+                                    False)
+            _kernel_vs_plain(v.cpu().numpy(), src[pl], txh[g], eh[g],
+                             levels, fe.bit_depth, pl == 0, (W, H), sub,
+                             True)
+
+
+@pytest.mark.card
+def test_a_chain_call_launches_the_deblock_kernel_twelve_times():
+    """Three planes x (search + apply) x (vertical + horizontal); and the
+    search and pick between the uploads and the fetch make no
+    synchronising call."""
+    if device_under_test() != "cuda":
+        pytest.skip("the kernel runs on the card (CAVIF_TORCH_TEST_DEVICE="
+                    "cuda)")
+    fe = _encoded_frame.__wrapped__(64, 64, 140, 3)
+    df.reset_launches()
+    with _traced():
+        assert df.run_filter_chain(fe) is not None
+        assert trace.ACCUM["device_filters.deblock_kernel"] == 1
+    assert df.LAUNCHES["deblock"] == 12
+    assert tuple(fe._lf_levels) == tuple(_encoded_frame(64, 64, 140,
+                                                        3)._lf_levels)
+    dev = "cuda"
+    grids = [df._filter_grids(a, fe.mi_rows, fe.mi_cols, dev)
+             for a in fe._filter_maps[1:]]
+    cands = torch.tensor(df._deblock_cands(fe._lf_hint()), dtype=torch.int32,
+                         device=dev)
+    rec, src = df._upload(fe._recon_full(), dev), df._upload(fe._src_stack(),
+                                                             dev)
+    kw = dict(bit_depth=fe.bit_depth, mi_rows=fe.mi_rows,
+              mi_cols=fe.mi_cols, vis=(64, 64), row_sub=4)
+    with torch.inference_mode():
+        df._deblock_search_apply(rec, src, *grids, cands, cands, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            levels, _stack, _deltas = df._deblock_search_apply(
+                rec, src, *grids, cands, cands, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert tuple(levels.tolist()) == tuple(fe._lf_levels)
+
+
+def test_cpu_tensors_take_the_plain_pass():
+    fe = _encoded_frame(64, 64, 140, 3)
+    before = df.LAUNCHES["deblock"]
+    with _traced():
+        levels, stack, _deltas = df.deblock_device(
+            fe._recon_full(), fe._src_stack(), fe._filter_maps,
+            fe._lf_hint(), bit_depth=fe.bit_depth, mi_rows=fe.mi_rows,
+            mi_cols=fe.mi_cols, vis=(64, 64), row_sub=4, device="cpu")
+        assert "device_filters.deblock_kernel" not in trace.ACCUM
+    assert df.LAUNCHES["deblock"] == before
+    if device_under_test() == "cpu":
+        assert before == 0
+    assert levels == tuple(fe._lf_levels)
+    _same(stack, fe._filtered_stack, "stack vs native")
+
+
+def _indexed_levels(dy, du, dv, y_cands, uv_cands):
+    """The level pick as it was written with 0-d indices (each read to
+    the host on a card): the oracle of _pick_levels."""
+    iy = torch.argmin(dy)
+    y = torch.where(dy[iy] < 0, y_cands[iy], 0).to(torch.int32)
+    if du is None:
+        u = v = torch.zeros((), dtype=torch.int32)
+    else:
+        iu, iv = torch.argmin(du), torch.argmin(dv)
+        u = torch.where((y > 0) & (du[iu] < 0), uv_cands[iu], 0)
+        v = torch.where((y > 0) & (dv[iv] < 0), uv_cands[iv], 0)
+    return torch.stack([y, y, u, v]).to(torch.int32)
+
+
+@pytest.mark.parametrize("dy,du,dv,hint", [
+    ((-5, -9, -9, -2), (-1, -1, 0, 3), (4, -7, -7, -7), 20),  # ties
+    ((0, 3, 0, 7), (-4, -2, 0, 0), (-1, 0, 0, 0), 20),  # all dy >= 0
+    ((1, 2, 3, 4), (-5, -1, 0, 0), (-2, -9, 0, 0), 40),  # y 0, u/v < 0
+    ((-3, -1, 5, -3), None, None, 0),  # one plane; candidates 1, 2, 4, 4
+    ((-3, -8, -8, -1), (2, -6, -6, -6), (0, 0, 0, 0), 0),  # padded dup
+])
+def test_the_level_pick_equals_the_indexed_rule(dy, du, dv, hint):
+    t = lambda d: None if d is None else torch.tensor(d, dtype=torch.int64)
+    cands = torch.tensor(df._deblock_cands(hint), dtype=torch.int32)
+    # as the search stacks them: zero chroma rows for one plane
+    zero = (0,) * len(dy)
+    deltas = t((dy, du or zero, dv or zero))
+    got = df._pick_levels(deltas, cands, cands)
+    want = _indexed_levels(t(dy), t(du), t(dv), cands, cands)
+    assert got.dtype == torch.int32 and got.shape == (4,)
+    assert got.tolist() == want.tolist()
+
+
+@pytest.mark.parametrize("what", ["levels", "plane", "contiguous", "dtype",
+                                  "row_sub"])
+def test_the_kernel_wrapper_refuses_what_the_kernel_does_not_take(what):
+    """Checked before any launch (meta tensors stand in for the card's)."""
+    dev, i32 = "meta", torch.int32
+    plane = torch.empty((16, 32), dtype=i32, device=dev)
+    maps = torch.empty((4, 8), dtype=i32, device=dev)
+    tx = maps
+    lvl = torch.empty((4,), dtype=i32, device=dev)
+    row_sub = 1
+    if what == "levels":
+        lvl = torch.empty((5,), dtype=i32, device=dev)
+    elif what == "plane":
+        plane = torch.empty((3, 16, 32), dtype=i32, device=dev)
+    elif what == "contiguous":
+        plane = torch.empty((32, 16), dtype=i32, device=dev).T
+    elif what == "dtype":
+        tx = torch.empty((4, 8), dtype=torch.int64, device=dev)
+    else:
+        row_sub = 0
+    with pytest.raises(ValueError):
+        df.deblock_pass(plane, None, tx, maps, lvl, 10, 4, 8, True,
+                        (32, 16), row_sub, horizontal=False)
