@@ -6,6 +6,8 @@ command line plants any."""
 
 from __future__ import annotations
 
+import numpy as np
+
 
 def stale(entry):
     """A step that returns its state unchanged: every call does its work
@@ -48,8 +50,34 @@ def flip(entry):
     return call
 
 
-FAULTS = {"stale": stale, "half": half, "flip": flip}
+def _alpha(entry, change):
+    """The entry with each RGBA image of a list changed by `change` first."""
+    def call(images):
+        return entry([change(im) if im.shape[2] == 4 else im
+                      for im in images])
+    return call
 
-# The control: the program's own path one precision below what the
-# configuration states (8-bit samples for its 10-bit depth).
-CONTROLS = {"depth8": {"depth": "Eight"}}
+
+def alpha_drop(entry):
+    """The alpha left out: each RGBA image answered with the file of its
+    colour alone, by making it opaque first (ravif codes an opaque image
+    without alpha), so that an entry of 4-channel images takes it too."""
+    return _alpha(entry, lambda im: np.dstack(
+        [im[..., :3], np.full(im.shape[:2], 255, np.uint8)]))
+
+
+def alpha_invert(entry):
+    """The alpha turned over: each RGBA image encoded with alpha 255 - a."""
+    return _alpha(entry, lambda im: np.dstack([im[..., :3], 255 - im[..., 3]]))
+
+
+FAULTS = {"stale": stale, "half": half, "flip": flip,
+          "alpha_drop": alpha_drop, "alpha_invert": alpha_invert}
+
+# The controls: the program's own path one precision below what the
+# configuration states (8-bit samples for its 10-bit depth), and, for
+# RGBA inputs, the alpha plane coded at lower qualities than cavif's 90
+# for Q80 (80 is the library's default, the colour's quality).
+CONTROLS = {"depth8": {"depth": "Eight"},
+            "alpha_q80": {"alpha_quality": 80},
+            "alpha_q60": {"alpha_quality": 60}}

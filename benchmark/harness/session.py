@@ -9,8 +9,6 @@ open, and the window ends when the work in flight has completed.
 
 from __future__ import annotations
 
-import os
-import resource
 import threading
 import time
 from dataclasses import dataclass, field, replace
@@ -18,7 +16,7 @@ from dataclasses import dataclass, field, replace
 from reference import avif as reference
 from traffic import generate
 
-from . import devtrace
+from . import devtrace, host
 
 
 @dataclass
@@ -43,26 +41,6 @@ class Window:
     samples: int = 0  # the samples it is summed over
 
 
-def _host_now() -> dict:
-    """This process's CPU seconds (every thread's) and the host clock."""
-    ru = resource.getrusage(resource.RUSAGE_SELF)
-    return {"t": time.perf_counter(), "cpu_s": ru.ru_utime + ru.ru_stime}
-
-
-def host_state(before: dict, after: dict) -> dict:
-    """What the host gave the run over a window: this process's CPU
-    seconds beside the wall time, its cores and its torch threads, so
-    that fast runs can be told from slow ones by more than their times."""
-    import torch
-
-    return {"cpus": len(os.sched_getaffinity(0)),
-            "torch_threads": torch.get_num_threads(),
-            "torch_interop_threads": torch.get_num_interop_threads(),
-            "omp_num_threads": os.environ.get("OMP_NUM_THREADS"),
-            "process_cpu_s": after["cpu_s"] - before["cpu_s"],
-            "wall_s": after["t"] - before["t"]}
-
-
 def make_encoder(settings: dict, device: str):
     """The port's Encoder under a configuration's `encoder` settings; on
     the card the device is left unset, as a user leaves it."""
@@ -75,6 +53,8 @@ def make_encoder(settings: dict, device: str):
            .with_internal_color_model(ColorModel[settings["color_model"]])
            .with_alpha_color_mode(
                AlphaColorMode[settings["alpha_color_mode"]]))
+    if "alpha_quality" in settings:  # else the library's default
+        enc = enc.with_alpha_quality(float(settings["alpha_quality"]))
     return enc if device == "cuda" else replace(enc, device=device)
 
 
@@ -90,16 +70,23 @@ def make_entry(name: str, enc):
                     for r in encode_batch(images, enc)]
         return call
     if name == "encode_rgb":
-        def call(images):
-            out = []
-            for img in images:
-                try:
-                    out.append((enc.encode_rgb(img).avif_file, None))
-                except Exception as e:  # an answer that never comes
-                    out.append((None, f"{type(e).__name__}: {e}"))
-            return out
-        return call
+        return _each(enc.encode_rgb)
+    if name == "encode_rgba":  # cavif's CLI hands every input to it
+        return _each(enc.encode_rgba)
     raise KeyError(f"no entry {name!r}")
+
+
+def _each(encode):
+    """The entry that encodes a list one image at a time."""
+    def call(images):
+        out = []
+        for img in images:
+            try:
+                out.append((encode(img).avif_file, None))
+            except Exception as e:  # an answer that never comes
+                out.append((None, f"{type(e).__name__}: {e}"))
+        return out
+    return call
 
 
 class Session:
@@ -112,12 +99,18 @@ class Session:
         images of the pool for each n of the cell's `warmup`."""
         self.cell, self.device = cell, device
         spec = cell.spec
+        reference.judged_settings(settings or cell.config["encoder"])
         if spec.get("loop", "closed") != "closed":
             raise ValueError(f"{cell.name}: only a closed loop is driven")
         self.per_request = int(spec.get("list_length", 1))
         self.streams = int(spec.get("streams", 1))
         self.pool = generate(cell.config["image"], seed, int(spec["pool"]),
                              device)
+        # RGBA inputs: their alpha is held to a limit of its own
+        self.rgba = any(im.shape[2] == 4 for im in self.pool)
+        if self.rgba and "alpha_rmse_worst" not in spec["limits"]:
+            raise ValueError(f"{cell.name}: RGBA inputs, and no limit for "
+                             "alpha_rmse_worst")
         if device == "cuda":
             # The port measures its link to the card once per process, at
             # first use, and engages the filter chain on it. Taken here,
@@ -133,6 +126,7 @@ class Session:
         for n in spec.get("warmup", [self.per_request]):
             self.entry(self.pool[:int(n)])
         self._sync()
+        host.settle()
 
     def reseed(self, seed: int) -> None:
         """A new pool of the same sizes (readings over many seeds in one
@@ -182,7 +176,9 @@ class Session:
             spans.set_accumulate(True)
             clock = devtrace.SpanClock(spans)
             clock.start()
-        before = _host_now()
+        gcs = host.GcClock()
+        gcs.start()
+        before = host.now()
         t0 = time.perf_counter()
         end = t0 + seconds
 
@@ -222,7 +218,8 @@ class Session:
                 t.join()
             self._sync()
             wall = time.perf_counter() - t0
-            after = _host_now()
+            after = host.now()
+            gcs.stop()
             if trace:
                 clock.stop()
                 table = dict(spans.ACCUM)
@@ -244,7 +241,7 @@ class Session:
                        for a in ok),
             avif_bytes=sum(len(a.avif) for a in ok),
             spans=table if trace else {}, device=tr,
-            host=host_state(before, after))
+            host={**host.state(before, after), **gcs.reading()})
 
     def check(self, win: Window):
         """({number compared: {"value", "limit"}}, [what was found wrong]):
@@ -255,6 +252,7 @@ class Session:
         limits = self.cell.spec["limits"]
         unanswered = decode_failed = faults = 0
         worst = 0.0
+        alpha, alpha_answered = [], 0  # of the RGBA inputs' files
         win.sq_err, win.samples = 0.0, 0
         notes = []
         for a in win.answers:
@@ -263,6 +261,10 @@ class Session:
                 notes.append(a.error)
                 continue
             got = reference.judge(a.avif, self.pool[a.image], want)
+            if self.pool[a.image].shape[2] == 4:
+                alpha_answered += 1
+                if got["decoded"]:
+                    alpha.append(got["rmse_alpha"])
             faults += len(got["faults"])
             notes += got["faults"]
             if not got["decoded"]:
@@ -279,5 +281,11 @@ class Session:
             worst = None  # no file decoded, no number: fails its limit
         nums = {"unanswered": unanswered, "decode_failed": decode_failed,
                 "property_faults": faults, "rmse_worst": worst}
+        if self.rgba:
+            # no decoded file of an RGBA input, or one without a
+            # reading: no number, which fails its limit
+            nums["alpha_rmse_worst"] = (
+                None if None in alpha or (alpha_answered and not alpha)
+                else max(alpha, default=0.0))
         out = {k: {"value": v, "limit": limits[k]} for k, v in nums.items()}
         return out, sorted({str(n) for n in notes if n})[:8]

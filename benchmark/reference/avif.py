@@ -1,6 +1,6 @@
 """Judge one AVIF file against the input image it was encoded from.
 
-Three readings per file:
+Three readings per file, and a fourth of an RGBA input:
 
 - `faults`: how many of the properties that the configuration states the
   file gets wrong. The container is read by the plain ISOBMFF parser
@@ -8,13 +8,29 @@ Three readings per file:
   and the AV1 codec configuration box of the AV1-ISOBMFF binding): brand,
   handler, one primary `av01` item with its data inside the file, its
   size (`ispe`), its channels and bits (`pixi`), its AV1 profile, depth
-  and chroma sampling (`av1C`), its colour signalling (`colr` nclx), no
-  alpha item, and the decoded picture's mode and size.
+  and chroma sampling (`av1C`), its colour signalling (`colr` nclx), the
+  alpha item where one belongs and none elsewhere, and the decoded
+  picture's mode and size.
 - `decoded`: whether an independent AV1 decoder (dav1d, through
   Pillow's libavif) decodes it. No AV1 decoder in plain NumPy exists
   here; dav1d is code of its own, not the program's.
-- `rmse`: the root mean square difference, in 8-bit levels over the R,
-  G and B samples, between the decoded picture and the input.
+- `rmse`: the root mean square difference, in 8-bit levels, between the
+  decoded picture and the input: over the R, G and B samples of an RGB
+  input; over all four samples of an RGBA one, its colour premultiplied
+  by its alpha on both sides (what a viewer shows).
+- `rmse_alpha` (RGBA inputs only): the same difference over the alpha
+  samples alone, so that an alpha plane coded too coarsely shows at its
+  own size and not diluted by the colour.
+
+The alpha rule follows ravif (`av1encoder.rs`: an RGBA input whose every
+pixel is opaque is coded without alpha) and HEIF's auxiliary images: a
+file needs an alpha item exactly when its input has 4 channels and some
+alpha below 255. That item is one `av01` item with an `auxl` reference to
+the primary and its data inside the file, an `auxC` of the alpha URN, a
+monochrome `av1C` at the stated depth, the primary's `ispe`, and a
+1-channel `pixi` at the stated depth. The `prem` reference marks
+premultiplied colour; only the unassociated alpha modes are judged, so it
+must be absent (`judged_settings` refuses the premultiplied mode).
 """
 
 from __future__ import annotations
@@ -25,6 +41,7 @@ import struct
 import numpy as np
 
 ROWS = 512  # rows per block of the difference, to bound host memory
+AUX_ALPHA = b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha"
 
 
 class Malformed(ValueError):
@@ -166,18 +183,81 @@ def parse(buf: bytes) -> dict:
             assoc.setdefault(item, []).extend(got)
 
     item_props: dict = {}
-    for idx in assoc.get(primary, []):
-        if not 1 <= idx <= len(props):
-            raise Malformed(f"property index {idx} of {len(props)}")
-        kind, bs, be = props[idx - 1]
-        item_props.setdefault(kind, []).append(buf[bs:be])
+    for item, idxs in assoc.items():
+        got = item_props.setdefault(item, {})
+        for idx in idxs:
+            if not 1 <= idx <= len(props):
+                raise Malformed(f"property index {idx} of {len(props)}")
+            kind, bs, be = props[idx - 1]
+            got.setdefault(kind, []).append(buf[bs:be])
     return {"major": major, "brands": brands, "handler": handler,
             "primary": primary, "types": types, "refs": refs,
-            "extents": extents, "props": item_props}
+            "extents": extents, "item_props": item_props}
 
 
-def _property_faults(info: dict, size: int, want: dict, h: int, w: int):
-    """[name of each stated property the file gets wrong]."""
+def judged_settings(settings: dict) -> None:
+    """Refuse, before any run, encoder settings whose files the judge
+    cannot judge: premultiplied alpha, whose colour Pillow would have to
+    un-premultiply in a way of its own."""
+    if settings.get("alpha_color_mode") == "Premultiplied":
+        raise ValueError("the reference judges the unassociated alpha modes "
+                         "only, not alpha_color_mode Premultiplied")
+
+
+def _one_prop(props: dict, kind: str):
+    got = props.get(kind, [])
+    return got[0] if len(got) == 1 else None
+
+
+def _data_inside(info: dict, item: int, size: int) -> bool:
+    ext = info["extents"].get(item) or []
+    return bool(ext) and all(m == 0 and ln > 0 and off + ln <= size
+                             for m, off, ln in ext)
+
+
+def _alpha_faults(info: dict, size: int, want: dict, h: int, w: int,
+                  alpha: bool):
+    """[what the file gets wrong of the alpha rule]: an alpha item where
+    `alpha` says one belongs, none where it says none."""
+    p = info["primary"]
+    aux = [src for kind, src, dst in info["refs"]
+           if kind == "auxl" and p in dst]
+    n_av01 = sum(t == "av01" for t in info["types"].values())
+    if not alpha:
+        return [] if aux == [] and n_av01 == 1 else ["alpha item"]
+    if len(aux) != 1 or n_av01 != 2 or info["types"].get(aux[0]) != "av01":
+        return ["alpha item"]
+    a = aux[0]
+    bad = [] if _data_inside(info, a, size) else ["alpha item data"]
+    if any(kind == "prem" for kind, _, _ in info["refs"]):
+        bad.append("alpha prem")
+    props = info["item_props"].get(a, {})
+    auxc = _one_prop(props, "auxC")
+    if auxc is None or auxc[4:].rstrip(b"\0") != AUX_ALPHA:
+        bad.append("alpha auxC")
+    depth = want["depth_bits"]
+    av1c = _one_prop(props, "av1C")
+    if av1c is None or len(av1c) < 4 or av1c[0] != 0x81:
+        bad.append("alpha av1C")
+    else:
+        b2 = av1c[2]
+        if not (b2 >> 4) & 1:
+            bad.append("alpha av1C monochrome")
+        if (b2 >> 6) & 1 != int(depth > 8) or (b2 >> 5) & 1 != int(depth > 10):
+            bad.append("alpha av1C depth")
+    ispe = _one_prop(props, "ispe")
+    if ispe is None or struct.unpack_from(">II", ispe, 4) != (w, h):
+        bad.append("alpha ispe size")
+    pixi = _one_prop(props, "pixi")
+    if pixi is None or len(pixi) != 6 or pixi[4] != 1 or pixi[5] != depth:
+        bad.append("alpha pixi")
+    return bad
+
+
+def _property_faults(info: dict, size: int, want: dict, h: int, w: int,
+                     alpha: bool = False):
+    """[name of each stated property the file gets wrong]; `alpha`: the
+    input calls for an alpha item."""
     bad = []
     if info["major"] != "avif":
         bad.append("brand")
@@ -186,19 +266,13 @@ def _property_faults(info: dict, size: int, want: dict, h: int, w: int):
     p = info["primary"]
     if info["types"].get(p) != "av01":
         bad.append("primary item type")
-    ext = info["extents"].get(p) or []
-    if (not ext or any(m != 0 or ln <= 0 or off + ln > size
-                       for m, off, ln in ext)):
+    if not _data_inside(info, p, size):
         bad.append("primary item data")
-    alpha = [src for kind, src, dst in info["refs"]
-             if kind == "auxl" and p in dst]
-    if alpha != [] or sum(t == "av01" for t in info["types"].values()) != 1:
-        bad.append("alpha item")
-    props = info["props"]
+    bad += _alpha_faults(info, size, want, h, w, alpha)
+    props = info["item_props"].get(p, {})
 
     def prop(kind):
-        got = props.get(kind, [])
-        return got[0] if len(got) == 1 else None
+        return _one_prop(props, kind)
 
     ispe = prop("ispe")
     if ispe is None or struct.unpack_from(">II", ispe, 4) != (w, h):
@@ -245,29 +319,61 @@ def _rmse(decoded: np.ndarray, image: np.ndarray) -> float:
     return float(np.sqrt(total / image.size))
 
 
+def _rmse_rgba(decoded: np.ndarray, image: np.ndarray) -> float:
+    """Over all four samples of each pixel: the colour premultiplied by
+    its alpha on each side, the alpha as it is."""
+    total = 0.0
+    for r in range(0, image.shape[0], ROWS):
+        d = decoded[r: r + ROWS].astype(np.float64)
+        i = image[r: r + ROWS].astype(np.float64)
+        dc = (d[..., :3] * d[..., 3:] - i[..., :3] * i[..., 3:]) / 255.0
+        da = d[..., 3] - i[..., 3]
+        total += (float(np.einsum("ijk,ijk->", dc, dc))
+                  + float(np.einsum("ij,ij->", da, da)))
+    return float(np.sqrt(total / image.size))
+
+
+def _rmse_alpha(decoded: np.ndarray, image: np.ndarray) -> float:
+    """Over the alpha samples alone."""
+    total = 0.0
+    for r in range(0, image.shape[0], ROWS):
+        d = (decoded[r: r + ROWS, :, 3].astype(np.float64)
+             - image[r: r + ROWS, :, 3].astype(np.float64))
+        total += float(np.einsum("ij,ij->", d, d))
+    return float(np.sqrt(total / (image.shape[0] * image.shape[1])))
+
+
 def judge(avif: bytes, image: np.ndarray, want: dict) -> dict:
     """{"faults": [...], "decoded": bool, "rmse": float or None} of one
-    file against the (H, W, 3) uint8 `image` it was encoded from, under
-    the properties `want` (a configuration's `states`)."""
+    file against the (H, W, 3) or (H, W, 4) uint8 `image` it was encoded
+    from, under the properties `want` (a configuration's `states`); of an
+    RGBA input also "rmse_alpha", where the file decoded."""
     from PIL import Image
 
-    h, w = image.shape[:2]
+    h, w, c = image.shape
+    alpha = c == 4 and bool((image[..., 3] != 255).any())
     try:
-        faults = _property_faults(parse(avif), len(avif), want, h, w)
+        faults = _property_faults(parse(avif), len(avif), want, h, w, alpha)
     except (Malformed, IndexError, struct.error, UnicodeDecodeError) as e:
         faults = [f"container: {e}"]
+    as_mode = "RGBA" if c == 4 else "RGB"
     try:
         with Image.open(io.BytesIO(avif)) as im:
             im.load()
             mode, size = im.mode, im.size
-            decoded = np.asarray(im.convert("RGB"))
+            decoded = np.asarray(im.convert(as_mode))
     except Exception as e:  # any refusal of the decoder is the reading
         return {"faults": faults, "decoded": False, "rmse": None,
                 "error": f"{type(e).__name__}: {e}"}
-    if mode != "RGB":
+    if mode != ("RGBA" if alpha else "RGB"):
         faults.append(f"decoded mode {mode}")
     if size != (w, h):
         faults.append(f"decoded size {size}")
-        return {"faults": faults, "decoded": True, "rmse": None}
+        got = {"faults": faults, "decoded": True, "rmse": None}
+        return {**got, "rmse_alpha": None} if c == 4 else got
+    if c == 3:
+        return {"faults": faults, "decoded": True,
+                "rmse": _rmse(decoded, image)}
     return {"faults": faults, "decoded": True,
-            "rmse": _rmse(decoded, image)}
+            "rmse": _rmse_rgba(decoded, image),
+            "rmse_alpha": _rmse_alpha(decoded, image)}
