@@ -206,23 +206,15 @@ class Encoder:
         Alpha preprocessing per `alpha_color_mode`; if every pixel is opaque
         the alpha stream is omitted entirely (av1encoder.rs:246-248).
         """
-        rgba = _check_image(rgba, 4)
-        converted = self._convert_alpha_8bit(rgba)
-        buf = converted if converted is not None else rgba
-        if not bool((buf[..., 3] != 255).any()):
-            return self._encode_rgb_internal(buf[..., :3])
         from .pipeline import encode_rgba_pipeline
 
-        return encode_rgba_pipeline(self, buf)
+        return encode_rgba_pipeline(self, _check_image(rgba, 4))
 
     def encode_rgb(self, rgb: np.ndarray) -> EncodedImage:
         """Encode an (H, W, 3) uint8 RGB image to AVIF (no alpha stream)."""
-        return self._encode_rgb_internal(_check_image(rgb, 3))
-
-    def _encode_rgb_internal(self, rgb: np.ndarray) -> EncodedImage:
         from .pipeline import encode_rgb_pipeline
 
-        return encode_rgb_pipeline(self, rgb)
+        return encode_rgb_pipeline(self, _check_image(rgb, 3))
 
     def encode_raw_planes_8bit(
         self,

@@ -2001,7 +2001,7 @@ class FrameEncoder:
     # -- frame assembly -----------------------------------------------------
 
     def encode(self) -> bytes:
-        from ..utils.trace import span
+        from ..utils.trace import count, span
 
         cfg = self.cfg
         tcl, trl = self._tile_split()
@@ -2011,6 +2011,8 @@ class FrameEncoder:
         if self._device_search:
             with span("device_pass1"):
                 self._device_grids()
+            if self.num_planes == 1:  # an alpha plane's mono program
+                count("device_pass1.mono")
         # Deferred EC (native backend + filter passes wanted): the block
         # pipeline runs decisions/recon/op-capture with entropy coding OFF,
         # and the bitstream is produced ONCE by the replay coder after the

@@ -83,9 +83,18 @@ def encode_batch(
         except BaseException as e:  # per-image isolation
             return BatchResult(index=i, error=e)
 
+    card = enc.device == "cuda" or (enc.device is None and _device_engaged())
+    if card:
+        # The filter chain's gate reads the attachment probe, measured once
+        # per process. Taken here, before any worker starts, it times the
+        # card alone: first timed inside a list, behind the workers'
+        # uploads and the interpreter lock, it could read above the gate's
+        # threshold and turn the chain off for the rest of the process.
+        from ..ops import attachment
+
+        attachment.probe()
     if len(images) <= 1:
         return [job(i) for i in range(len(images))]
-    card = enc.device == "cuda" or (enc.device is None and _device_engaged())
     if processes is None:
         # device pass-1 pipelines best from threads (one CUDA context, the
         # card overlaps the per-image uploads); a forked child cannot use
@@ -265,9 +274,10 @@ def encode_batch_sharded(
     from ..av1.config import AV1Config
     from ..av1.encoder import FrameEncoder, frame_geometry
     from ..av1.speed import SpeedTweaks
-    from ..ops import colorspace
+    from ..ops import attachment, colorspace
     from ..ops.device_pass1 import run_pass1_batch
-    from ..pipeline import _finish, _matrix_coefficients
+    from ..pipeline import _finish, _matrix_coefficients, prepare_alpha
+    from ..utils import trace
     from .mesh import axes
 
     data_n = 1 if mesh is None else axes(mesh).data
@@ -276,6 +286,8 @@ def encode_batch_sharded(
         return []
     depth = enc.output_depth.bits
     device = "cuda" if enc.device is None else enc.device
+    if device.startswith("cuda"):
+        attachment.probe()  # before any worker, as encode_batch takes it
 
     # per-image prep: reference alpha semantics (preprocess + opaque drop)
     prepped = []  # (rgb uint8, alpha uint8 | None)
@@ -283,11 +295,8 @@ def encode_batch_sharded(
         im = np.asarray(im)
         alpha = None
         if im.ndim == 3 and im.shape[2] == 4:
-            conv = enc._convert_alpha_8bit(im)
-            buf = conv if conv is not None else im
-            if bool((buf[..., 3] != 255).any()):
-                alpha = np.ascontiguousarray(buf[..., 3])
-            im = buf
+            with trace.span("alpha.prep"):
+                im, alpha = prepare_alpha(enc, im)
         prepped.append((np.ascontiguousarray(im[..., :3]), alpha))
 
     def mk_cfg(h, w, kind):
@@ -427,9 +436,10 @@ def encode_batch_sharded(
         rgb, alpha = prepped[i]
         h, w = rgb.shape[:2]
         color = encode_stream(i, "color")
-        alpha_payload = (
-            encode_stream(i, "alpha") if alpha is not None else None
-        )
+        alpha_payload = None
+        if alpha is not None:
+            with trace.span("alpha.stream"):
+                alpha_payload = encode_stream(i, "alpha")
         return _finish(enc, color, alpha_payload, w, h, depth).avif_file
 
     # an image is host-ready once EVERY stream it needs has grids; order

@@ -83,11 +83,14 @@ def _encode_streams(enc, planes: np.ndarray, alpha: Optional[np.ndarray],
     import contextvars
     from concurrent.futures import ThreadPoolExecutor
 
+    def alpha_stream():
+        with trace.span("alpha.stream"):
+            return encode_planes(alpha, alpha_cfg, alpha8)
+
     with ThreadPoolExecutor(max_workers=2) as ex:
         fc = ex.submit(contextvars.copy_context().run,
                        encode_planes, planes, color_cfg, rgb8)
-        fa = ex.submit(contextvars.copy_context().run,
-                       encode_planes, alpha, alpha_cfg, alpha8)
+        fa = ex.submit(contextvars.copy_context().run, alpha_stream)
         return fc.result(), fa.result()
 
 
@@ -116,22 +119,36 @@ def _finish(enc, color: bytes, alpha: Optional[bytes], w: int, h: int, depth: in
     )
 
 
+def prepare_alpha(enc, rgba: np.ndarray):
+    """An RGBA image's alpha preprocessing (av1encoder.rs:243-299): the
+    alpha mode's pass over the colour, then the opaque drop. Returns (the
+    image after its alpha mode, its alpha plane as contiguous uint8, or
+    None where every pixel is opaque: no alpha stream)."""
+    conv = enc._convert_alpha_8bit(rgba)
+    buf = conv if conv is not None else rgba
+    if not bool((buf[..., 3] != 255).any()):
+        return buf, None
+    return buf, np.ascontiguousarray(buf[..., 3])
+
+
 def encode_rgba_pipeline(enc, rgba: np.ndarray):
     depth = enc.output_depth.bits
     h, w = rgba.shape[:2]
     trace.reset()
     with trace.span("encode"):
+        with trace.span("alpha.prep"):
+            rgba, alpha8 = prepare_alpha(enc, rgba)
+            alpha = (None if alpha8 is None
+                     else colorspace.alpha_plane_host(alpha8, depth=depth))
         with trace.span("convert"):
             planes = _convert_planes(enc, rgba[..., :3], depth)
-            alpha = colorspace.alpha_plane_host(rgba[..., 3], depth=depth)
         color, alpha_payload = _encode_streams(
             enc, planes, alpha, depth,
-            rgb8=np.ascontiguousarray(rgba[..., :3]),
-            alpha8=np.ascontiguousarray(rgba[..., 3]),
+            rgb8=np.ascontiguousarray(rgba[..., :3]), alpha8=alpha8,
         )
         with trace.span("mux"):
             out = _finish(enc, color, alpha_payload, w, h, depth)
-    trace.report(f"rgba {w}x{h}")
+    trace.report(f"{'rgba' if alpha is not None else 'rgb'} {w}x{h}")
     return out
 
 

@@ -4,9 +4,13 @@ Enable with CAVIF_TPU_TRACE=1 or `set_enabled(True)`. While tracing is on,
 every `span(name)` appends one `Record` to its thread's buffer: its id, the
 id of the enclosing span (`parent`) and of the enclosing root span
 (`request`: the pipeline's `encode` span, one per encode), the thread, the
-name, its start and end in ns of the wall clock (`time.time_ns()`, the
-clock of torch.profiler's events) and the thread's CPU time inside it
-(`time.thread_time_ns()`). The innermost open span lives in a ContextVar,
+name, its start and end in ns of the wall clock (the clock of
+torch.profiler's events) and the thread's CPU time inside it
+(`time.thread_time_ns()`). Both ends come from one clock, the monotonic
+one, shifted onto the wall clock by one offset taken when tracing is
+turned on, so that a span nested in another starts and ends inside it;
+NTP slews the monotonic clock at the wall clock's rate, so the two do not
+drift apart over a traced window. The innermost open span lives in a ContextVar,
 so a thread started under `contextvars.copy_context()` keeps its parent
 and request. A thread keeps at most CAP records; what the cap drops is
 counted under `trace.dropped`.
@@ -67,15 +71,22 @@ _buffers: list = []  # every thread's record buffer since set_accumulate(True)
 _gen = 0  # bumped by set_accumulate(True): threads start new buffers
 
 
-def _raw_ns() -> int:
-    # unslewed, like the thread CPU clock, so that cpu <= wall holds
-    return time.clock_gettime_ns(time.CLOCK_MONOTONIC_RAW)
+def _wall_offset() -> int:
+    return time.time_ns() - time.monotonic_ns()
+
+
+# the wall clock less the monotonic one: a record's start is
+# time.monotonic_ns() + this
+_OFFSET_NS = _wall_offset()
 
 
 def set_enabled(flag: bool) -> None:
     """Programmatic switch (the drivers and the benchmark trace a window
-    without CAVIF_TPU_TRACE in the environment; report() stays silent)."""
-    global ENABLED
+    without CAVIF_TPU_TRACE in the environment; report() stays silent).
+    Turning tracing on takes the wall-clock offset afresh."""
+    global ENABLED, _OFFSET_NS
+    if flag and not ENABLED:
+        _OFFSET_NS = _wall_offset()
     ENABLED = bool(flag)
 
 
@@ -126,14 +137,13 @@ def span(name: str):
     sid = next(_ids)
     request = outer[1] if outer else sid
     token = _OPEN.set((sid, request))
-    start = time.time_ns()
-    r0 = _raw_ns()
+    r0 = time.monotonic_ns()
     c0 = time.thread_time_ns()
     try:
         yield
     finally:
         cpu = time.thread_time_ns() - c0
-        wall = _raw_ns() - r0
+        wall = time.monotonic_ns() - r0
         # where the thread CPU clock advances in steps (a scheduler tick on
         # some hosts), a short span can read more CPU than wall time; the
         # thread ran at most the span's length
@@ -141,6 +151,7 @@ def span(name: str):
         _OPEN.reset(token)
         buf = _buffer()
         if len(buf) < CAP:
+            start = _OFFSET_NS + r0
             buf.append(Record(sid, outer and outer[0], request,
                               threading.get_ident(), name, start,
                               start + wall, cpu))

@@ -1,7 +1,8 @@
 """The port's tracer (cavif_tpu_torch/utils/trace.py): spans as records with
 ids, parents, requests, threads, wall-clock bounds on the profiler's clock
-and thread CPU time; the totals of ACCUM; the per-thread cap; the stderr
-report under CAVIF_TPU_TRACE; the set-up phases; the filter chain's split
+and thread CPU time; an RGBA encode's alpha spans nested in its root; the
+totals of ACCUM; the per-thread cap; the stderr report under
+CAVIF_TPU_TRACE; the set-up phases; the filter chain's split
 into kernel issue and wait, and its CUDA-event times on the card."""
 
 import contextvars
@@ -93,6 +94,31 @@ def test_nested_spans_carry_parent_request_and_thread(traced):
         assert leaf.end_ns <= child.end_ns <= root.end_ns
     assert recs["root.a"].thread != recs["root.b"].thread
     assert recs["root.a"].id != recs["root.b"].id
+
+
+def test_the_alpha_prep_nests_dirty_alpha_under_the_encode(traced):
+    """An RGBA encode's alpha preprocessing is part of the encode: its span
+    `alpha.prep` is a child of the root `encode`, `dirty_alpha` a child of
+    it, both with the encode's request and inside their parent's bounds;
+    the alpha stream follows on a thread of its own, a child of the
+    encode."""
+    img = _image()
+    alpha = np.full(img.shape[:2], 255, np.uint8)
+    alpha[16:32, 8:56] = np.random.default_rng(3).integers(0, 255, (16, 48))
+    _encoder().encode_rgba(np.dstack([img, alpha]))
+    recs = trace.records()
+    (enc,) = [r for r in recs if r.name == "encode"]
+    (prep,) = [r for r in recs if r.name == "alpha.prep"]
+    (dirty,) = [r for r in recs if r.name == "dirty_alpha"]
+    (stream,) = [r for r in recs if r.name == "alpha.stream"]
+    assert enc.parent is None and enc.request == enc.id
+    assert prep.parent == enc.id and prep.request == enc.id
+    assert dirty.parent == prep.id and dirty.request == enc.id
+    assert stream.parent == enc.id and stream.request == enc.id
+    assert enc.start_ns <= prep.start_ns <= dirty.start_ns
+    assert dirty.end_ns <= prep.end_ns <= stream.start_ns
+    assert stream.end_ns <= enc.end_ns
+    assert prep.thread == dirty.thread == enc.thread != stream.thread
 
 
 def test_a_thread_started_under_a_context_copy_keeps_its_parent(traced):
